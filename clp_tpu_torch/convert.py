@@ -54,3 +54,15 @@ def simplex_state_to_numpy(state: SimplexState) -> dict:
            for f in dataclasses.fields(state)}
     out["basis"] = out["basis"].astype(np.int32)
     return out
+
+
+def block_forms_from_numpy(blk, device) -> tuple:
+    """(starts, W, m8) as the engine takes them: starts int32, as the
+    kernel K3 reads them."""
+    starts, W, m8 = blk
+    return _tensor(starts, device, torch.int32), _tensor(W, device), int(m8)
+
+
+def block_forms_to_numpy(blk) -> tuple:
+    starts, W, m8 = blk
+    return starts.detach().cpu().numpy(), W.detach().cpu().numpy(), int(m8)

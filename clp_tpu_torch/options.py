@@ -110,10 +110,10 @@ class SolveOptions:
     # engine PRICE/FTRAN kernels: "auto" picks the multiply-free +-1 path
     # (gathers, O(n) PRICE) when the matrix qualifies (ClpPlusMinusOneMatrix
     # / ClpNetworkMatrix role); "dense" forces the dense contraction;
-    # "block" (block-banded column tiles, kernel K3) and "ell" (sparse
-    # pricing) are not ported yet (ROADMAP.md queue 1). In the JAX package
-    # "block" measured 0.76x the fused dense path at 2048x4608 on the TPU
-    # v5e, so it is opt-in there.
+    # "block" prices block-banded LPs over column tiles of their row
+    # windows (kernel K3 on the card), and declines to "dense" where the LP
+    # is not block-banded enough. It is opt-in, as in the JAX package.
+    # "ell" (sparse pricing) is not ported yet (ROADMAP.md queue 1).
     price_mode: str = "auto"  # "auto" | "dense" | "pm1" | "block"
     # dual ratio test: "bfrt" = long-step bound-flipping ratio test (walk
     # past boxed breakpoints while the leaving row's infeasibility slope

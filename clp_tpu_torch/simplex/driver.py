@@ -599,6 +599,65 @@ def _pm1_eligible(model: Model) -> bool:
     return bool(np.all(npos <= 1) and np.all(nneg <= 1))
 
 
+def block_geometry(model: Model):
+    """The block-banded PRICE geometry of `model`'s standard form, or None.
+
+    Groups the standard-form columns (structurals + slacks) by row-support
+    window, picks the block width CB minimizing total tile area nb*H*CB,
+    and accepts it only with coverage H <= m/2 and an area of at most 0.6
+    of the dense m*nt (the JAX package's gate for price_mode="block"). Returns
+    (nb, H, CB, perm): perm sorts the columns by window position, so each
+    block's columns are contiguous. None means the LP is not block-banded
+    enough, and the JAX package then runs the dense route.
+    """
+    A = model.matrix.tocsc()
+    A.sort_indices()
+    m, n = A.shape
+    nt = n + m
+    lo_c = np.zeros(nt, dtype=np.int64)
+    hi_c = np.ones(nt, dtype=np.int64)
+    nzc = np.flatnonzero(np.diff(A.indptr))
+    lo_c[nzc] = A.indices[A.indptr[nzc]]
+    hi_c[nzc] = A.indices[A.indptr[nzc + 1] - 1] + 1
+    lo_c[n:] = np.arange(m)
+    hi_c[n:] = np.arange(m) + 1
+    order = np.argsort(lo_c + hi_c, kind="stable")
+    best = None
+    for cb in (128, 256, 384, 512):
+        nb_try = -(-nt // cb)
+        if nb_try < 2:
+            continue
+        pad = nb_try * cb - nt
+        lo_s = np.concatenate([lo_c[order], np.full(pad, lo_c[order[-1]])])
+        hi_s = np.concatenate([hi_c[order], np.full(pad, hi_c[order[-1]])])
+        spans = (hi_s.reshape(nb_try, cb).max(axis=1)
+                 - lo_s.reshape(nb_try, cb).min(axis=1))
+        # +8 slack: block_forms floors window starts to multiples of 8
+        H = int(-(-int(spans.max()) // 8) * 8) + 8
+        H = min(H, -(-m // 8) * 8)
+        cost = nb_try * H * cb
+        if best is None or cost < best[0]:
+            best = (cost, nb_try, H, cb)
+    if best is None or best[2] > m // 2 or best[0] > 0.6 * m * nt:
+        return None
+    return best[1], best[2], best[3], np.ascontiguousarray(order)
+
+
+def _sorted_state(st: SimplexState, perm, inv) -> SimplexState:
+    """A state of the original column order relabelled to the sorted one
+    (binv, xb and the weights are row-space and stay)."""
+    return dataclasses.replace(st, vstat=st.vstat.index_select(0, perm),
+                               dj=st.dj.index_select(0, perm),
+                               basis=inv.index_select(0, st.basis))
+
+
+def _orig_state(st: SimplexState, perm, inv) -> SimplexState:
+    """The inverse of `_sorted_state`."""
+    return dataclasses.replace(st, vstat=st.vstat.index_select(0, inv),
+                               dj=st.dj.index_select(0, inv),
+                               basis=perm.index_select(0, st.basis))
+
+
 def simplex_solve(
     model: Model,
     options: SolveOptions,
@@ -609,10 +668,9 @@ def simplex_solve(
     if bucket > 0:
         raise NotImplementedError(
             "shape_bucket > 0 is not ported yet (ROADMAP.md queue 1: shape_bucket)")
-    if options.price_mode in ("ell", "block"):
+    if options.price_mode == "ell":
         raise NotImplementedError(
-            f"price_mode={options.price_mode!r} is not ported yet (ROADMAP.md "
-            "queue 1: K3 with `block` mode; `ell` and `pe`)")
+            "price_mode='ell' is not ported yet (ROADMAP.md queue 1: `ell` and `pe`)")
     device = resolve_device(getattr(options, "device", "cuda"))
     lp, info = to_standard_form(model, device=device)
     m, nt = lp.G.shape
@@ -685,6 +743,15 @@ def simplex_solve(
         use_pallas = bool(options.use_pallas_price)
 
     price_mode = options.price_mode
+    blk_nb = blk_h = blk_cb = 0
+    blk_perm = None
+    # "block" is opt-in, as in the JAX package
+    if price_mode == "block":
+        geom = block_geometry(model)
+        if geom is not None:
+            blk_nb, blk_h, blk_cb, blk_perm = geom
+        else:
+            price_mode = "dense"  # structure not block-banded enough
     if price_mode == "auto":
         if not use_pallas and _pm1_eligible(model):
             price_mode = "pm1"
@@ -703,6 +770,7 @@ def simplex_solve(
                         "ported yet (ROADMAP.md queue 1: `ell` and `pe`)")
     if price_mode == "pm1":
         use_pallas = False  # the gathers replace the dense contraction
+    # "block" KEEPS the K1 flag: K3 replaces K1 on the block route
 
     inv_dtype = getattr(options, "inverse_dtype", "auto")
     if inv_dtype == "auto":
@@ -740,6 +808,9 @@ def simplex_solve(
             # fused FTRAN+update kernel K2: opt-in, as in the JAX package
             use_pallas_pivot=getattr(options, "use_pallas_pivot", False),
             price_mode=price_mode,
+            price_block_nb=blk_nb,
+            price_block_h=blk_h,
+            price_block_cb=blk_cb,
             inverse_dtype=inv_dtype,
             dual_ratio=dual_ratio,
             # blocks of 8 gated pivots per host status check on the mixed
@@ -751,14 +822,31 @@ def simplex_solve(
         )
 
     opts = make_opts(getattr(options, "dual_bound", DUAL_BOUND_DEFAULT))
+    # block price mode: sort the standard-form columns by window position
+    # once; the engines run entirely in sorted space and every state built
+    # in the original order (initial_state assumes slacks last) or handed
+    # back to the caller passes through _to_sorted / _to_orig
+    lp0 = lp
+    if blk_perm is not None:
+        perm = torch.as_tensor(blk_perm, device=lp.G.device)
+        inv = torch.argsort(perm)
+        lp = dataclasses.replace(
+            lp, G=lp.G.index_select(1, perm), c=lp.c.index_select(0, perm),
+            l=lp.l.index_select(0, perm), u=lp.u.index_select(0, perm))
+
+    def _to_sorted(st):
+        return st if blk_perm is None else _sorted_state(st, perm, inv)
+
+    def _to_orig(st):
+        return st if blk_perm is None else _orig_state(st, perm, inv)
 
     if warm is not None:
         if warm.column_status is None and warm.primal is not None:
             # values-only warm point: the crossover basis construction
             ev(Event.START_OF_CROSSOVER)
-        state = _warm_state(lp, opts, warm, n, m)
+        state = _to_sorted(_warm_state(lp0, opts, warm, n, m))
     else:
-        state = initial_state(lp, opts)
+        state = _to_sorted(initial_state(lp0, opts))
 
     def dsolve(lp_, state_, opts_):
         if aborted["flag"]:
@@ -904,9 +992,10 @@ def simplex_solve(
         )
         state64 = recompute(lp, state64, opts64.dual_bound)
         if int(state64.status) == engine.NUMERICAL:
-            # singular carried basis: cold f64 restart
-            state64 = (initial_state(lp, opts64) if warm is None
-                       else _warm_state(lp, opts64, warm, n, m))
+            # singular carried basis: cold f64 restart (built in the
+            # original column order, then mapped)
+            state64 = _to_sorted(initial_state(lp0, opts64) if warm is None
+                                 else _warm_state(lp0, opts64, warm, n, m))
             state64 = recompute(lp, state64, opts64.dual_bound)
         if dual:
             state64 = make_dual_feasible(lp, state64, opts64)
@@ -928,8 +1017,8 @@ def simplex_solve(
             lp, c=torch.as_tensor(c + rng.uniform(0.5, 1.0, c.size) * scale,
                                   dtype=lp.c.dtype, device=lp.c.device)
         )
-        state3 = (initial_state(lp, opts) if warm is None
-                  else _warm_state(lp, opts, warm, n, m))
+        state3 = _to_sorted(initial_state(lp0, opts) if warm is None
+                            else _warm_state(lp0, opts, warm, n, m))
         state3 = recompute(lp_pert, state3, opts.dual_bound)
         state3 = make_dual_feasible(lp_pert, state3, opts)
         state3 = dsolve(lp_pert, state3, opts)
@@ -979,7 +1068,7 @@ def simplex_solve(
             algorithm="dual" if dual else "primal",
             status=st,
             iterations=int(state.iterations),
-            vstat=_np(state.vstat).copy(),
+            vstat=_np(_to_orig(state).vstat).copy(),
         )
         disaster.save_info(snap)
         if disaster.check(snap) and disaster.type_of_disaster() == 0:
@@ -993,7 +1082,7 @@ def simplex_solve(
                 opts, inverse_dtype="float64", use_pallas_price=False,
                 use_pallas_pivot=False, **adj,
             )
-            state_r = initial_state(lp, opts_r)
+            state_r = _to_sorted(initial_state(lp0, opts_r))
             state_r = recompute(lp, state_r, opts_r.dual_bound)
             if dual:
                 state_r = make_dual_feasible(lp, state_r, opts_r)
@@ -1017,7 +1106,7 @@ def simplex_solve(
 
     ev(Event.END_IN_DUAL if dual else Event.END_IN_PRIMAL, status=st)
     ev(Event.BEFORE_DELETE_RIM)
-    sol = _extract(model, lp, state, opts, st)
+    sol = _extract(model, lp0, _to_orig(state), opts, st)
     if aborted["flag"]:
         sol.status = ProblemStatus.USER_STOPPED
         _msg("CLP_SIMPLEX_INTERRUPT")

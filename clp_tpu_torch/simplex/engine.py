@@ -38,7 +38,7 @@ import torch
 from ..forms import StandardLP
 from ..ops.linalg import lu_refactor, lu_refactor32
 from ..ops.pivot import fused_pivot_update
-from ..ops.price import price_and_ratios
+from ..ops.price import price_and_ratios, price_and_ratios_block
 
 # status codes (match ProblemStatus where >= 0)
 CONTINUE = -1
@@ -97,9 +97,16 @@ class SimplexOptions:
     # (networks + their slacks). PRICE becomes two gathers (O(n) vs O(mn))
     # and the FTRAN column two binv column reads (reference:
     # ClpPlusMinusOneMatrix.hpp, ClpNetworkMatrix.hpp:12-16). The caller must
-    # have verified the structure. "ell" and "block" are not ported yet
-    # (ROADMAP.md queue 1: K3 with `block` mode; `ell` and `pe`).
-    price_mode: str = "dense"  # "dense" | "pm1"
+    # have verified the structure. "ell" is not ported yet (ROADMAP.md
+    # queue 1: `ell` and `pe`).
+    price_mode: str = "dense"  # "dense" | "pm1" | "block"
+    # "block" geometry (block-banded LPs: staircase/multi-period): nb
+    # column groups, each covered by an H-row window — PRICE/FTRAN/matvec
+    # become batched dense-tile ops (block_forms). Chosen by the driver
+    # from the host matrix so every column's support fits its window.
+    price_block_nb: int = 0  # 0 = mode unavailable
+    price_block_h: int = 0
+    price_block_cb: int = 0  # columns per block (multiple of 128)
     # dual ratio test. "harris" = two-pass Harris stopping at the first
     # breakpoint window. "bfrt" = long-step bound-flipping ratio test
     # (reference: dualColumn's candidate/flip accounting,
@@ -146,10 +153,10 @@ def _check_supported(opts: SimplexOptions) -> None:
         raise NotImplementedError(
             "Positive Edge pivot rules are not ported yet (ROADMAP.md queue 1: "
             "`ell` and `pe`): they draw jax.random streams torch cannot reproduce")
-    if opts.price_mode not in ("dense", "pm1"):
+    if opts.price_mode not in ("dense", "pm1", "block"):
         raise NotImplementedError(
             f"price_mode={opts.price_mode!r} is not ported yet (ROADMAP.md queue 1: "
-            "K3 with `block` mode; `ell` and `pe`)")
+            "`ell` and `pe`)")
     if opts.ablate:
         raise NotImplementedError(
             "the timing-only ablate gates are not ported (ROADMAP.md queue 1: "
@@ -298,6 +305,93 @@ def _pm1_matvec(delta, pm1, m):
     return out[:m]
 
 
+# --------------------------------------------------------------------------
+# block-banded forms (staircase / multi-period LPs)
+# --------------------------------------------------------------------------
+
+
+def block_forms(G, nb: int, H: int, CB: int = 0):
+    """Column-window block forms over a PRE-SORTED G: contiguous runs of
+    CB columns share one (H, CB) dense tile covering their row window.
+
+    alpha = rho @ G becomes one batched product over (nb, H, CB) tiles,
+    whose work and memory traffic are the covered windows, not m*nt. The
+    driver permutes the standard form's columns by window position once
+    per solve (and un-permutes the final state), so block results land
+    contiguously. The caller chooses nb/H so every column's support fits
+    its block window: starts_b = min(min_lo_b, m8-H) covers [min_lo_b,
+    max_hi_b) whenever the block span <= H. Returns (starts int32 (nb,),
+    W (nb, H, CB) in G's dtype, m8).
+    """
+    m, nt = G.shape
+    if CB <= 0:
+        CB = -(-nt // nb)
+    # rows pad to a multiple of 8 and window starts round DOWN to multiples
+    # of 8, as the JAX package's TPU kernel wants them; the driver's H
+    # carries +8 slack so flooring never uncovers a column's support
+    m8 = -(-m // 8) * 8
+    G = torch.nn.functional.pad(G, (0, nb * CB - nt, 0, m8 - m))
+    nz = G.abs() > 0
+    # trouble spot: torch.argmax refuses bool; on uint8 it returns the first
+    # maximum, as jnp.argmax does. Pad / empty columns must not drag a
+    # block's window start to 0.
+    lo = torch.where(nz.any(dim=0), torch.argmax(nz.to(torch.uint8), dim=0), m)
+    starts = torch.clamp_max(lo.reshape(nb, CB).amin(dim=1), m8 - H)
+    starts = torch.div(starts, 8, rounding_mode="floor") * 8
+    rows = starts[:, None, None] + torch.arange(H, device=G.device)[None, :, None]
+    cols = torch.arange(nb * CB, device=G.device).reshape(nb, 1, CB)
+    return starts.to(torch.int32), G[rows, cols].contiguous(), m8
+
+
+def _pad(v, n: int, fill=0.0):
+    """v with n trailing `fill`s; v itself when n == 0 (no copy launched)."""
+    return torch.nn.functional.pad(v, (0, n), value=fill) if n else v
+
+
+def _blk_rows(starts, H):
+    """(nb, H) row indices of every block's window."""
+    return starts.to(torch.int64)[:, None] + torch.arange(H, device=starts.device)
+
+
+def _blk_price(rho, blk, dtype, nt):
+    """alpha = rho @ G over block tiles: one (nb,H)x(nb,H,CB) batched
+    product; output is already in (sorted) column order."""
+    starts, W, m8 = blk
+    rho_p = _pad(rho, m8 - rho.shape[0])
+    rho_w = rho_p[_blk_rows(starts, W.shape[1])].to(W.dtype)
+    return torch.bmm(rho_w[:, None, :], W).reshape(-1)[:nt].to(dtype)
+
+
+def _blk_col(q, blk, m):
+    """Dense G[:, q] scattered from its block window. q is a 0-dim device
+    index: block and column come from tensor arithmetic, never .item()."""
+    starts, W, m8 = blk
+    nb, H, CB = W.shape
+    b = torch.div(q, CB, rounding_mode="floor").reshape(1)
+    ar = torch.arange(H, device=W.device)
+    # column c of tile b: W.flat[b*H*CB + h*CB + c] for h < H
+    win = W.reshape(-1).index_select(0, b * (H * CB) + q.reshape(1) % CB + ar * CB)
+    rows = starts.index_select(0, b).to(torch.int64) + ar
+    return W.new_zeros(m8).index_copy_(0, rows, win)[:m]
+
+
+def _blk_matvec(x, blk, m):
+    """G @ x: per-block (H, CB) @ (CB,), then the overlapping windows summed.
+
+    The JAX package scatters the windows with an add; on CUDA an
+    index_add_ uses atomics, whose order changes from run to run. Here each
+    block's window goes to its own row of an (nb, m8) buffer (no index
+    repeats within a row) and the rows are summed by a reduction of fixed
+    order, so the flow, and the pivot path after it, is deterministic.
+    """
+    starts, W, m8 = blk
+    nb, H, CB = W.shape
+    xp = _pad(x, nb * CB - x.shape[0]).reshape(nb, CB, 1)
+    contrib = torch.bmm(W, xp.to(W.dtype))[:, :, 0]
+    buf = W.new_zeros(nb, m8).scatter_(1, _blk_rows(starts, H), contrib)
+    return buf.sum(dim=0)[:m]
+
+
 def _smallest_k(t32: torch.Tensor, K: int) -> torch.Tensor:
     """Indices of the K smallest entries, ascending, ties by lower index.
 
@@ -340,14 +434,15 @@ def pivot_invariants(lp: StandardLP, opts: SimplexOptions):
 
 
 def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
-                   G32=None, pm1=None, pre=None):
+                   G32=None, pm1=None, blk=None, pre=None):
     """One dual pivot: price row -> BTRAN -> ratio test -> FTRAN -> update.
 
     When opts.use_pallas_price, PRICE + the Harris pass-1 scan run fused in
-    f32 (K1, ops/price.py) against a loop-invariant f32 copy of G (`G32`);
-    the chosen pivot is verified against the FTRAN value so pricing
-    precision never affects correctness — only, at worst, the pivot choice
-    (an extra iteration).
+    f32 (K1, ops/price.py) against a loop-invariant f32 copy of G (`G32`),
+    or, given the block forms `blk` of a block-banded G (block_forms), in
+    K3 against its f32 tiles; the chosen pivot is verified against the
+    FTRAN value so pricing precision never affects correctness — only, at
+    worst, the pivot choice (an extra iteration).
 
     When opts.inverse_dtype == "float32", binv arrives in f32 and all
     O(m^2) work against it (PRICE source row, FTRAN triple, rank-1 update)
@@ -403,7 +498,21 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     sgn = torch.where(at_lo, one, -one)
     rel = opts.harris_tolerance_frac * dtol
 
-    if opts.use_pallas_price:
+    if opts.use_pallas_price and blk is not None:
+        # fused BLOCK PRICE + Harris pass-1 (K3): reads the window-compacted
+        # (nb, H, CB) tiles instead of the full (m, nt) G
+        starts_b, W_b, m8_b = blk
+        padc = W_b.shape[0] * W_b.shape[2] - nt
+        cand_dir = (at_lo | at_up) & ~fixed
+        al_b, th_b = price_and_ratios_block(
+            _pad(rho, m8_b - m), starts_b, W_b, _pad(state.dj, padc),
+            _pad(cand_dir.to(torch.int32), padc), _pad(sgn, padc, 1.0),
+            sigma, rel, pt)
+        alpha = al_b[:nt].to(dt)
+        a = sigma * alpha
+        elig = ((at_lo & (a > pt)) | (at_up & (a < -pt))) & ~fixed
+        theta_relaxed = torch.where(elig, th_b[:nt].to(dt), _INF)
+    elif opts.use_pallas_price:
         cand_dir = (at_lo | at_up) & ~fixed
         alpha, theta_relaxed = price_and_ratios(
             rho, G if G32 is None else G32, state.dj, cand_dir, sgn,
@@ -415,6 +524,9 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     else:
         if pm1 is not None:
             alpha = _pm1_price(rho, pm1).to(dt)  # gathers only
+        elif blk is not None:
+            # block-banded PRICE: one batched (nb,H)x(nb,H,CB) product
+            alpha = _blk_price(rho, blk, dt, nt)
         elif G32 is not None and mixed:
             alpha = (rho @ G32).to(dt)
         else:
@@ -507,7 +619,8 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     # binv for all three m^2 contractions. The flow is computed whether or
     # not any bound flips (the JAX package branches with lax.cond; a host
     # branch here would sync every pivot): G @ 0 is exactly 0, so results
-    # do not change, at the cost of one m x nt matvec per pivot. ---
+    # do not change, at the cost of one matvec per pivot (m x nt dense, or
+    # the covered windows of the block form). ---
     bd = state.binv.dtype
     binv_fused = None  # set when the fused pivot kernel ran
     if pm1 is not None:
@@ -515,11 +628,17 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         tau = (state.binv @ rho).to(dt)
         flow = (state.binv @ _pm1_matvec(flip_delta, pm1, m).to(bd)).to(dt)
     else:
-        Gf = G32 if (G32 is not None and mixed) else G
-        Gq = Gf.index_select(1, q.reshape(1))[:, 0]
-        # mixed engine: the m x nt contraction runs against the f32 G
-        # copy; drift is covered by the f64 recompute at refactorization
-        fdelta = Gf @ flip_delta.to(Gf.dtype)
+        if blk is not None:
+            # column and flow from the block form; in the mixed engine W is
+            # f32 and its column is cast to the LP's dtype, as in JAX
+            Gq = _blk_col(q, blk, m).to(dt)
+            fdelta = _blk_matvec(flip_delta, blk, m).to(dt)
+        else:
+            Gf = G32 if (G32 is not None and mixed) else G
+            Gq = Gf.index_select(1, q.reshape(1))[:, 0]
+            # mixed engine: the m x nt contraction runs against the f32 G
+            # copy; drift is covered by the f64 recompute at refactorization
+            fdelta = Gf @ flip_delta.to(Gf.dtype)
         triple = torch.stack([Gq.to(bd), rho.to(bd), fdelta.to(bd)], dim=1)
         if opts.use_pallas_pivot and mixed and bd == f32:
             # fused kernel K2: the 3-column FTRAN AND the rank-1 update in a
@@ -996,18 +1115,29 @@ def _run_loop(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
 def _dual_iteration_fn(lp: StandardLP, opts: SimplexOptions):
     """Dual iteration closure; hoists loop-invariant matrix forms out of
     the pivot loop (the f32 G copy for K1/mixed-precision pricing, built
-    once per solve and never per pivot, or the +-1 index arrays for
-    multiply-free pricing)."""
+    once per solve and never per pivot, the block forms of a block-banded
+    G, or the +-1 index arrays for multiply-free pricing)."""
     _check_supported(opts)
     pre = pivot_invariants(lp, opts)
     if opts.price_mode == "pm1" and not opts.use_pallas_price:
         return partial(dual_iteration, pm1=pm1_indices(lp.G), pre=pre)
+    if opts.price_mode == "block" and opts.price_block_nb > 0:
+        # W in f32 when the inverse is f32 or K3 is on, else in G's dtype;
+        # no f32 copy of the whole G outlives block_forms
+        Gb = (lp.G.to(torch.float32)
+              if (opts.inverse_dtype == "float32" or opts.use_pallas_price)
+              else lp.G)
+        blk = block_forms(Gb, opts.price_block_nb, opts.price_block_h,
+                          opts.price_block_cb)
+        return partial(dual_iteration, blk=blk, pre=pre)
     if opts.use_pallas_price or opts.inverse_dtype == "float32":
         return partial(dual_iteration, G32=lp.G.to(torch.float32), pre=pre)
     return partial(dual_iteration, pre=pre)
 
 
 def _primal_iteration_fn(lp: StandardLP, opts: SimplexOptions):
+    """Primal iteration closure. The block form is the dual engine's: the
+    primal prices densely on the (permuted) LP, as in the JAX package."""
     _check_supported(opts)
     if opts.price_mode == "pm1":
         return partial(primal_iteration, pm1=pm1_indices(lp.G))

@@ -108,7 +108,7 @@ def test_fp32_precision_guard():
     ({"method": "BARRIER"}, "barrier"),
     ({"method": "PDLP"}, "other solvers"),
     ({"dual_pivot": "pesteepest"}, "pe"),
-    ({"price_mode": "block"}, "block"),
+    ({"price_mode": "ell"}, "ell"),
     ({"shape_bucket": 64}, "shape_bucket"),
     ({"crash": "idiot"}, "crash"),
     ({"dualize": 1}, "dualize"),
