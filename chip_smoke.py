@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels from clp_tpu_torch/csrc (nvcc, sm_90a, one
 process per source, all started together), holds each kernel against its
-plain PyTorch version at the main path's shapes and times both, then solves
+plain PyTorch version at the main path's shapes and times both (K1 and K3
+also for bit-identical results over 10 launches, K3 beside the device-side
+floor of an empty launch), then solves
 the 2048 x 4608 staircase LP end to end through
 `initial_solve(method=DUAL_SIMPLEX, device="cuda")` three times — with K1,
 with K1 + K2, and on the block-banded route `price_mode="block"` with K3 —
@@ -131,55 +133,85 @@ def check_k1(dev, flush, G):
     from clp_tpu_torch.ops.price import price_and_ratios, price_and_ratios_reference
 
     rng = np.random.default_rng(0)
-    f32 = torch.float32
+    f32, f64 = torch.float32, torch.float64
     rho = torch.as_tensor(rng.standard_normal(M), dtype=f32, device=dev)
-    dj = torch.as_tensor(np.abs(rng.standard_normal(NT)), dtype=f32, device=dev)
+    # dj, sgn and sigma in f64 and the mask as bool, as the engine hands them over
+    dj = torch.as_tensor(np.abs(rng.standard_normal(NT)), dtype=f64, device=dev)
     elig = torch.as_tensor(rng.uniform(size=NT) < 0.7, device=dev)
     sgn = torch.as_tensor(np.where(rng.uniform(size=NT) < 0.5, 1.0, -1.0),
-                          dtype=f32, device=dev)
-    sigma = torch.ones((), dtype=f32, device=dev)
+                          dtype=f64, device=dev)
+    sigma = torch.ones((), dtype=f64, device=dev)
     rel, ptol = 5e-8, 1e-9
-    elig32 = elig.to(torch.int32)
+    # the plain version's inputs: the same values as the kernel reads them
+    plain_in = (rho, G, dj.to(f32), elig.to(torch.int32), sgn.to(f32), sigma.to(f32))
     a_k, r_k = price_and_ratios(rho, G, dj, elig, sgn, sigma, rel, ptol)
-    a_p, r_p = price_and_ratios_reference(rho, G, dj, elig32, sgn, sigma, rel, ptol)
+    a_p, r_p = price_and_ratios_reference(*plain_in, rel, ptol)
     torch.cuda.synchronize()
-    a_k, r_k, a_p, r_p = (t.cpu().numpy() for t in (a_k, r_k, a_p, r_p))
-    # tolerances of tests/test_pallas.py: f32 sums in another order
-    np.testing.assert_allclose(a_k, a_p, rtol=2e-5, atol=2e-5)
-    agree = float((np.isfinite(r_k) == np.isfinite(r_p)).mean())
-    if agree <= 0.99:
-        raise AssertionError(f"K1 ratio finiteness agreement {agree} <= 0.99")
-    both = np.isfinite(r_k) & np.isfinite(r_p)
-    np.testing.assert_allclose(r_k[both], r_p[both], rtol=2e-4, atol=2e-4)
-    err = float(np.abs(a_k - a_p).max())
+    err, agree = assert_price_close("K1", a_k, r_k, a_p, r_p)
 
     def library():
         alpha = rho @ G
-        a = sigma * alpha
-        ok = elig & (a.abs() > ptol) & (sgn * a > 0)
-        return alpha, torch.where(ok, (dj + sgn * rel) / torch.where(ok, a, 1.0), torch.inf)
+        d, s, sig = plain_in[2], plain_in[4], plain_in[5]
+        a = sig * alpha
+        ok = elig & (a.abs() > ptol) & (s * a > 0)
+        return alpha, torch.where(ok, (d + s * rel) / torch.where(ok, a, 1.0), torch.inf)
 
     out = torch.empty((2, NT), dtype=f32, device=dev)
-    sig1 = sigma.reshape(1)
-    ms = cold_ms(lambda: price._launch(rho, G, dj, elig32, sgn, sig1, rel, ptol, out), flush)
-    idle = cold_ms(lambda: price._launch(rho, G, dj, elig32, sgn, sig1, rel, ptol, out),
-                   flush, busy=False)
+    vecs = price._kernel_vecs(dj, elig, sgn, sigma, dev)
+
+    def launch():
+        price._launch(rho, G, *vecs, rel, ptol, out)
+        return out
+
+    det = assert_deterministic("K1", launch)
+    ms = cold_ms(launch, flush)
+    idle = cold_ms(launch, flush, busy=False)
     wrapper = cold_ms(lambda: price_and_ratios(rho, G, dj, elig, sgn, sigma, rel, ptol), flush)
-    plain = cold_ms(lambda: price_and_ratios_reference(
-        rho, G, dj, elig32, sgn, sigma, rel, ptol), flush)
+    plain = cold_ms(lambda: price_and_ratios_reference(*plain_in, rel, ptol), flush)
     lib = cold_ms(library, flush)
-    nbytes = 4 * (M * NT + M + 3 * NT + 1) + 4 * 2 * NT
+    nbytes = tensor_bytes(rho, G, *vecs[:4], out)
     b_ms, b_by = bound(nbytes, 2 * M * NT + 6 * NT)
-    print(f"K1 price_and_ratios m={M} nt={NT}: max|alpha err|={err:.3e} "
-          f"ratio finiteness agreement={agree:.5f}; kernel {ms * 1e3:.1f} us "
+    plan = price.k1_plan(M, NT, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"K1 price_and_ratios m={M} nt={NT} ({plan.tiles} tiles x {plan.splits} splits "
+          f"= {plan.grid} blocks): max|alpha err|={err:.3e} "
+          f"ratio finiteness agreement={agree:.5f}, {det}; kernel {ms * 1e3:.1f} us "
           f"(from an idle stream {idle * 1e3:.1f} us), wrapper {wrapper * 1e3:.1f} us, "
           f"plain {plain * 1e3:.1f} us, library {lib * 1e3:.1f} us, "
-          f"bound {b_ms * 1e3:.1f} us ({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
+          f"bound {b_ms * 1e3:.1f} us ({b_by}, {nbytes / 1e6:.1f} MB), "
+          f"{100 * b_ms / ms:.1f}% of the bound", flush=True)
     return {"name": "K1 price_and_ratios", "route": "cuda",
             "source": "clp_tpu_torch/csrc/price.cu",
             "replaces": "clp_tpu/ops/pallas_price.py:110",
             "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def tensor_bytes(*ts) -> int:
+    """Bytes of the tensors: each input read once, each output written once."""
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def assert_price_close(name, a_k, r_k, a_p, r_p) -> tuple[float, float]:
+    """The tolerances of tests/test_pallas.py (f32 sums in another order);
+    returns the largest alpha difference and the ratio finiteness agreement."""
+    a_k, r_k, a_p, r_p = (t.cpu().numpy() for t in (a_k, r_k, a_p, r_p))
+    np.testing.assert_allclose(a_k, a_p, rtol=2e-5, atol=2e-5)
+    agree = float((np.isfinite(r_k) == np.isfinite(r_p)).mean())
+    if agree <= 0.99:
+        raise AssertionError(f"{name} ratio finiteness agreement {agree} <= 0.99")
+    both = np.isfinite(r_k) & np.isfinite(r_p)
+    np.testing.assert_allclose(r_k[both], r_p[both], rtol=2e-4, atol=2e-4)
+    return float(np.abs(a_k - a_p).max()), agree
+
+
+def assert_deterministic(name, launch, reps: int = 10) -> str:
+    """`reps` launches on the same inputs must give the same bits."""
+    first = launch().clone()
+    for i in range(1, reps):
+        got = launch()
+        if not torch.equal(got.view(torch.int32), first.view(torch.int32)):
+            raise AssertionError(f"{name}: launch {i + 1} differs in its bits from launch 1")
+    return f"{reps} launches bit-identical"
 
 
 def check_k2(dev, flush, G32):
@@ -236,7 +268,7 @@ def check_k2(dev, flush, G32):
           f"wrapper {wrapper * 1e3:.1f} us, "
           f"plain {plain * 1e3:.1f} us, library "
           f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}, "
-          f"{nbytes / 1e6:.1f} MB)", flush=True)
+          f"{nbytes / 1e6:.1f} MB), {100 * b_ms / ms:.1f}% of the bound", flush=True)
     return {"name": "K2 fused_pivot_update", "route": "cuda",
             "source": "clp_tpu_torch/csrc/pivot.cu",
             "replaces": "clp_tpu/ops/pallas_pivot.py:96",
@@ -258,65 +290,73 @@ def check_k3(dev, flush, Gs, blk):
     nb, H, CB = W.shape
     ntp = nb * CB
     rng = np.random.default_rng(0)
-    f32 = torch.float32
+    f32, f64 = torch.float32, torch.float64
     rho = torch.as_tensor(rng.standard_normal(M), dtype=f32, device=dev)
     rho_p = torch.nn.functional.pad(rho, (0, m8 - M))
-    dj = torch.as_tensor(np.abs(rng.standard_normal(ntp)), dtype=f32, device=dev)
-    elig = torch.as_tensor(rng.uniform(size=ntp) < 0.7, device=dev)
-    sgn = torch.as_tensor(np.where(rng.uniform(size=ntp) < 0.5, 1.0, -1.0),
-                          dtype=f32, device=dev)
-    sigma = torch.ones((), dtype=f32, device=dev)
+    # as the engine hands them over: dj, sgn and sigma in f64, the mask as
+    # bool, all three vectors unpadded (NT columns of the ntp = nb * CB)
+    dj = torch.as_tensor(np.abs(rng.standard_normal(NT)), dtype=f64, device=dev)
+    elig = torch.as_tensor(rng.uniform(size=NT) < 0.7, device=dev)
+    sgn = torch.as_tensor(np.where(rng.uniform(size=NT) < 0.5, 1.0, -1.0),
+                          dtype=f64, device=dev)
+    sigma = torch.ones((), dtype=f64, device=dev)
     rel, ptol = 5e-8, 1e-9
-    elig32 = elig.to(torch.int32)
+    pad = ntp - NT
+    plain_in = (rho_p, starts, W, torch.nn.functional.pad(dj.to(f32), (0, pad)),
+                torch.nn.functional.pad(elig.to(torch.int32), (0, pad)),
+                torch.nn.functional.pad(sgn.to(f32), (0, pad), value=1.0), sigma.to(f32))
     a_k, r_k = price_and_ratios_block(rho_p, starts, W, dj, elig, sgn, sigma, rel, ptol)
-    a_p, r_p = price_and_ratios_block_reference(rho_p, starts, W, dj, elig32, sgn,
-                                                sigma, rel, ptol)
+    a_p, r_p = price_and_ratios_block_reference(*plain_in, rel, ptol)
     dense = rho @ Gs
     torch.cuda.synchronize()
-    a_k, r_k, a_p, r_p, dense = (t.cpu().numpy() for t in (a_k, r_k, a_p, r_p, dense))
-    # K1's tolerances: f32 sums in another order
-    np.testing.assert_allclose(a_k, a_p, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(a_k[:NT], dense, rtol=2e-5, atol=2e-5)
-    agree = float((np.isfinite(r_k) == np.isfinite(r_p)).mean())
-    if agree <= 0.99:
-        raise AssertionError(f"K3 ratio finiteness agreement {agree} <= 0.99")
-    both = np.isfinite(r_k) & np.isfinite(r_p)
-    np.testing.assert_allclose(r_k[both], r_p[both], rtol=2e-4, atol=2e-4)
-    err = float(np.abs(a_k - a_p).max())
+    err, agree = assert_price_close("K3", a_k, r_k, a_p, r_p)
+    np.testing.assert_allclose(a_k[:NT].cpu().numpy(), dense.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
 
     rows = starts.to(torch.int64)[:, None] + torch.arange(H, device=dev)
+    plain_vecs = plain_in[3:6]
 
     def library():
         alpha = torch.bmm(rho_p[rows][:, None, :], W)[:, 0, :].reshape(-1)
         a = sigma * alpha
-        ok = elig & (a.abs() > ptol) & (sgn * a > 0)
-        return alpha, torch.where(ok, (dj + sgn * rel) / torch.where(ok, a, 1.0), torch.inf)
+        d, e, s = plain_vecs
+        ok = (e != 0) & (a.abs() > ptol) & (s * a > 0)
+        return alpha, torch.where(ok, (d + s * rel) / torch.where(ok, a, 1.0), torch.inf)
 
     out = torch.empty((2, ntp), dtype=f32, device=dev)
     starts32 = starts.to(torch.int32)
-    sig1 = sigma.reshape(1)
-    ms = cold_ms(lambda: price._launch_block(rho_p, starts32, W, dj, elig32, sgn, sig1,
-                                             rel, ptol, out), flush)
-    idle = cold_ms(lambda: price._launch_block(rho_p, starts32, W, dj, elig32, sgn, sig1,
-                                               rel, ptol, out), flush, busy=False)
+    vecs = price._kernel_vecs(dj, elig, sgn, sigma, dev)
+
+    def launch():
+        price._launch_block(rho_p, starts32, W, *vecs, rel, ptol, out)
+        return out
+
+    det = assert_deterministic("K3", launch)
+    ms = cold_ms(launch, flush)
+    idle = cold_ms(launch, flush, busy=False)
+    # the device-side floor of any launch: an empty kernel timed the same way
+    floor = cold_ms(lambda: torch.cuda._sleep(0), flush)
     wrapper = cold_ms(lambda: price_and_ratios_block(
         rho_p, starts, W, dj, elig, sgn, sigma, rel, ptol), flush)
-    plain = cold_ms(lambda: price_and_ratios_block_reference(
-        rho_p, starts, W, dj, elig32, sgn, sigma, rel, ptol), flush)
+    plain = cold_ms(lambda: price_and_ratios_block_reference(*plain_in, rel, ptol), flush)
     lib = cold_ms(library, flush)
-    nbytes = 4 * (nb * H * CB + m8 + nb + 3 * ntp + 1) + 4 * 2 * ntp
+    nbytes = tensor_bytes(rho_p, starts32, W, *vecs[:4], out)
     b_ms, b_by = bound(nbytes, 2 * nb * H * CB + 6 * ntp)
-    print(f"K3 price_and_ratios_block nb={nb} H={H} CB={CB} m8={m8}: "
-          f"max|alpha err|={err:.3e} ratio finiteness agreement={agree:.5f}; "
-          f"kernel {ms * 1e3:.1f} us (from an idle stream {idle * 1e3:.1f} us), "
+    plan = price.k3_plan(nb, H, CB)
+    print(f"K3 price_and_ratios_block nb={nb} H={H} CB={CB} m8={m8} ({plan.grid} blocks of "
+          f"{plan.tile_cols} columns): "
+          f"max|alpha err|={err:.3e} ratio finiteness agreement={agree:.5f}, {det}; "
+          f"kernel {ms * 1e3:.2f} us (from an idle stream {idle * 1e3:.1f} us; "
+          f"launch floor, torch.cuda._sleep(0), {floor * 1e3:.2f} us), "
           f"wrapper {wrapper * 1e3:.1f} us, "
           f"plain {plain * 1e3:.1f} us, library {lib * 1e3:.1f} us, "
-          f"bound {b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB)", flush=True)
+          f"bound {b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB), "
+          f"{100 * b_ms / ms:.1f}% of the bound", flush=True)
     return {"name": "K3 price_and_ratios_block", "route": "cuda",
             "source": "clp_tpu_torch/csrc/price_block.cu",
             "replaces": "clp_tpu/ops/pallas_price.py:205",
             "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "launch_floor_ms": floor}
 
 
 def highs_objective(model) -> float:
@@ -519,7 +559,9 @@ def main() -> int:
                        check=True, timeout=600)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (k1, k2, k3)]}))
+    print(json.dumps({"kernels": [
+        {k: rec[k] for k in keys} | {k: v for k, v in rec.items() if k == "launch_floor_ms"}
+        for rec in (k1, k2, k3)]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

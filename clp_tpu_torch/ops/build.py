@@ -3,7 +3,8 @@
 Each source `clp_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for
 `sm_90a` into its own shared library with a plain C interface and loaded
 with ctypes (no PyTorch headers, so a build takes seconds). Libraries go
-to `build/` at the repository root, named by a hash of their source, so a
+to `build/` at the repository root, named by a hash of their source and
+the `csrc/*.cuh` headers, so a
 changed source is rebuilt and a stale library is never loaded. Nothing is
 built when a module is imported: the first launch builds, or a caller
 builds every kernel at once with `build_all`, one `nvcc` per source, all
@@ -41,7 +42,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers a source may include count as part of it
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -500,13 +500,12 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
 
     if opts.use_pallas_price and blk is not None:
         # fused BLOCK PRICE + Harris pass-1 (K3): reads the window-compacted
-        # (nb, H, CB) tiles instead of the full (m, nt) G
+        # (nb, H, CB) tiles instead of the full (m, nt) G; the kernel takes
+        # dj, the mask and sgn unpadded and as they are stored
         starts_b, W_b, m8_b = blk
-        padc = W_b.shape[0] * W_b.shape[2] - nt
         cand_dir = (at_lo | at_up) & ~fixed
         al_b, th_b = price_and_ratios_block(
-            _pad(rho, m8_b - m), starts_b, W_b, _pad(state.dj, padc),
-            _pad(cand_dir.to(torch.int32), padc), _pad(sgn, padc, 1.0),
+            _pad(rho, m8_b - m), starts_b, W_b, state.dj, cand_dir, sgn,
             sigma, rel, pt)
         alpha = al_b[:nt].to(dt)
         a = sigma * alpha

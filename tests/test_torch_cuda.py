@@ -115,6 +115,143 @@ def test_block_price_kernel_on_card(cuda_device, H, sigma):
                        a_p.cpu().numpy(), r_p.cpu().numpy())
 
 
+def exact_price_inputs(m, nt, seed=6):
+    """K1 inputs whose f32 sums are exact (multiples of 1/8 in [-1/2, 1/2],
+    as in block_price_inputs), so any split of the m-sum gives the same
+    alpha; dj, sgn and sigma in f64 and the mask as bool, as the engine
+    holds them."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        rho=(rng.integers(-4, 5, size=m) / 8).astype(np.float32),
+        G=(rng.integers(-4, 5, size=(m, nt)) / 8).astype(np.float32),
+        dj=np.abs(rng.standard_normal(nt)),
+        elig=rng.uniform(size=nt) < 0.7,
+        sgn=np.where(rng.uniform(size=nt) < 0.5, 1.0, -1.0),
+    )
+
+
+# nt % 4 != 0 (scalar loads), nt < 128 (one partial tile), m split over
+# blocks or not, and the main path's shape
+@pytest.mark.parametrize("m, nt", [(1, 1), (24, 3), (7, 127), (2048, 6657), (2048, 6656),
+                                   (14464, 130)])
+def test_price_kernel_ragged_on_card(cuda_device, m, nt):
+    t = {k: torch.as_tensor(v, device=cuda_device) for k, v in exact_price_inputs(m, nt).items()}
+    sigma = torch.tensor(-1.0, dtype=torch.float64, device=cuda_device)
+    args = [t[k] for k in ("rho", "G", "dj", "elig", "sgn")]
+    a_k, r_k = price_and_ratios(*args, sigma, 5e-8, 1e-9)
+    f32 = [args[0], args[1], args[2].float(), args[3].int(), args[4].float()]
+    a_p, r_p = price_and_ratios_reference(*f32, sigma.float(), 5e-8, 1e-9)
+    assert torch.equal(a_k, a_p)  # exact sums
+    assert_price_close(a_k.cpu().numpy(), r_k.cpu().numpy(),
+                       a_p.cpu().numpy(), r_p.cpu().numpy())
+
+
+def test_price_kernel_on_misaligned_g(cuda_device):
+    """A G that starts 4 bytes past a 16-byte boundary takes the scalar
+    loads, with the same sums."""
+    m, nt = 40, 256
+    x = exact_price_inputs(m, nt)
+    flat = torch.empty(m * nt + 1, device=cuda_device)
+    G = flat[1:].view(m, nt)
+    G.copy_(torch.as_tensor(x["G"]))
+    assert G.data_ptr() % 16 != 0 and G.is_contiguous()
+    t = {k: torch.as_tensor(v, device=cuda_device) for k, v in x.items()}
+    a_k, _ = price_and_ratios(t["rho"], G, t["dj"], t["elig"], t["sgn"], 1.0, 5e-8, 1e-9)
+    assert torch.equal(a_k, t["rho"] @ t["G"])
+
+
+@pytest.mark.parametrize("nb, H, CB", [(1, 8, 1), (7, 37, 100), (52, 264, 128),
+                                       (3, 2100, 200), (2, 61, 130)])
+def test_block_price_kernel_ragged_on_card(cuda_device, nb, H, CB):
+    """Any (nb, H, CB), with dj, the mask and sgn unpadded (the last three
+    columns left out) and stored as the engine holds them."""
+    x = block_price_inputs(H, nb=nb, CB=CB)
+    t = {k: torch.as_tensor(v, device=cuda_device) for k, v in x.items()}
+    n = max(1, nb * CB - 3)
+    vecs = [t["dj"][:n].double(), t["elig"][:n], t["sgn"][:n].double()]
+    sig = torch.tensor(1.0, dtype=torch.float64, device=cuda_device)
+    a_k, r_k = price_and_ratios_block(t["rho_p"], t["starts"], t["W"], *vecs, sig, 5e-8, 1e-9)
+    pad = nb * CB - n
+    padded = [torch.nn.functional.pad(t["dj"][:n], (0, pad)),
+              torch.nn.functional.pad(t["elig"][:n].int(), (0, pad)),
+              torch.nn.functional.pad(t["sgn"][:n], (0, pad), value=1.0)]
+    a_p, r_p = price_and_ratios_block_reference(t["rho_p"], t["starts"], t["W"], *padded,
+                                                sig.float(), 5e-8, 1e-9)
+    assert torch.equal(a_k, a_p)  # exact sums
+    assert torch.isinf(r_k[n:]).all()
+    assert_price_close(a_k.cpu().numpy(), r_k.cpu().numpy(),
+                       a_p.cpu().numpy(), r_p.cpu().numpy())
+
+
+def main_path_k1_inputs(dev):
+    """K1 at the staircase's standard-form shape, N(0, 1) entries: sums
+    whose f32 value depends on their order."""
+    rng = np.random.default_rng(7)
+    m, nt = 2048, 6656
+    return [torch.as_tensor(rng.standard_normal(m), dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.standard_normal((m, nt)), dtype=torch.float32, device=dev),
+            torch.as_tensor(np.abs(rng.standard_normal(nt)), device=dev),
+            torch.as_tensor(rng.uniform(size=nt) < 0.7, device=dev),
+            torch.as_tensor(np.where(rng.uniform(size=nt) < 0.5, 1.0, -1.0), device=dev)]
+
+
+def main_path_k3_inputs(dev):
+    rng = np.random.default_rng(8)
+    nb, H, CB = 52, 264, 128
+    m8 = 2048
+    return [torch.as_tensor(rng.standard_normal(m8), dtype=torch.float32, device=dev),
+            torch.as_tensor(np.linspace(0, m8 - H, nb).astype(np.int32) // 8 * 8, device=dev),
+            torch.as_tensor(rng.standard_normal((nb, H, CB)), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(np.abs(rng.standard_normal(nb * CB)), device=dev),
+            torch.as_tensor(rng.uniform(size=nb * CB) < 0.7, device=dev),
+            torch.as_tensor(np.where(rng.uniform(size=nb * CB) < 0.5, 1.0, -1.0), device=dev)]
+
+
+def bits(pair):
+    return torch.stack(pair).view(torch.int32).clone()
+
+
+@pytest.mark.parametrize("reps", [2, 10])
+def test_kernels_are_bit_deterministic_on_card(cuda_device, reps):
+    """Consecutive launches on the same inputs give the same bits: the
+    splits are summed in a fixed order, and the last block of each tile
+    leaves its counter at zero for the next launch."""
+    k1 = main_path_k1_inputs(cuda_device)
+    k3 = main_path_k3_inputs(cuda_device)
+    one = torch.ones((), dtype=torch.float64, device=cuda_device)
+    first1 = bits(price_and_ratios(*k1, one, 5e-8, 1e-9))
+    first3 = bits(price_and_ratios_block(*k3, one, 5e-8, 1e-9))
+    for _ in range(reps - 1):
+        assert torch.equal(bits(price_and_ratios(*k1, one, 5e-8, 1e-9)), first1)
+        assert torch.equal(bits(price_and_ratios_block(*k3, one, 5e-8, 1e-9)), first3)
+    torch.cuda.synchronize()
+    # K1's counters are back at zero (K3 keeps none)
+    assert not price._workspaces[torch.device("cuda", torch.cuda.current_device())][1].any()
+
+
+def test_k1_and_k3_back_to_back_on_card(cuda_device):
+    """K1 then K3 and K3 then K1, back to back on one stream, give each
+    kernel's result alone: nothing one leaves behind reaches the other."""
+    k1 = main_path_k1_inputs(cuda_device)
+    k3 = main_path_k3_inputs(cuda_device)
+    one = torch.ones((), dtype=torch.float64, device=cuda_device)
+    alone1 = bits(price_and_ratios(*k1, one, 5e-8, 1e-9))
+    torch.cuda.synchronize()
+    alone3 = bits(price_and_ratios_block(*k3, one, 5e-8, 1e-9))
+    torch.cuda.synchronize()
+    for order in (("k1", "k3"), ("k3", "k1")):
+        got = {}
+        for kind in order:
+            got[kind] = (price_and_ratios(*k1, one, 5e-8, 1e-9) if kind == "k1"
+                         else price_and_ratios_block(*k3, one, 5e-8, 1e-9))
+        assert torch.equal(bits(got["k1"]), alone1)
+        assert torch.equal(bits(got["k3"]), alone3)
+    # and the dense alpha agrees with a plain product at f32 tolerance
+    np.testing.assert_allclose(price_and_ratios(*k1, one, 5e-8, 1e-9)[0].cpu().numpy(),
+                               (k1[0] @ k1[1]).cpu().numpy(), rtol=1e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("gate", [1.0, 0.0])
 def test_pivot_kernel_on_card(cuda_device, gate):
     binv, triple, rho, abar_r, r = pivot_inputs()
