@@ -11,10 +11,18 @@ the 2048 x 4608 staircase LP end to end through
 `initial_solve(method=DUAL_SIMPLEX, device="cuda")` three times — with K1,
 with K1 + K2, and on the block-banded route `price_mode="block"` with K3 —
 and checks each answer against the port's KKT check and HiGHS
-(scipy.optimize.milp). Last, each in a fresh process
-(`chip_smoke.py --profile-pivots dense|block`), it profiles 200 pivots of
-the engine on the dense route and on the block route. Every phase that
-fails exits non-zero.
+(scipy.optimize.milp). Then the barrier: it asserts on each LP's IPM form
+the Newton branch the port's own planners pick (`_rcm_band_plan`,
+`make_device_normal_solver`, `_auto_method`), times one factorization of
+that branch and counts its launches, and solves three LPs against HiGHS
+— the staircase with `method=BARRIER` (banded normal equations, nb = 256,
+then the crossover's dual simplex through K1), `random_lp(1024, 1792,
+density=0.05)` with `method=BARRIER` (dense mixed32 normal equations, then
+the crossover) and a 4096 x 8192 window LP with the default AUTOMATIC
+(BARRIER_NO_CROSS on the device multifrontal Cholesky). Last, each in a
+fresh process (`chip_smoke.py --profile-pivots dense|block`), it profiles
+200 pivots of the engine on the dense route and on the block route. Every
+phase that fails exits non-zero.
 
 Prints a `{"kernels": [...]}` line, the card's name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. Imports nothing of the JAX
@@ -359,13 +367,27 @@ def check_k3(dev, flush, Gs, blk):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "launch_floor_ms": floor}
 
 
-def highs_objective(model) -> float:
-    from scipy.optimize import Bounds, LinearConstraint, milp
+def highs_objective(model, ipm: bool = False) -> float:
+    """HiGHS's optimum of the model: its dual simplex through
+    `scipy.optimize.milp`, or with `ipm` its interior point with crossover
+    through `linprog(method="highs-ipm")` (three times faster than its
+    simplex on the dense-ish random LP)."""
+    from scipy.optimize import Bounds, LinearConstraint, linprog, milp
 
-    lc = LinearConstraint(model.matrix.tocsc(), np.maximum(model.row_lower, -1e30),
-                          np.minimum(model.row_upper, 1e30))
-    bnd = Bounds(np.maximum(model.col_lower, -1e30), np.minimum(model.col_upper, 1e30))
-    res = milp(model.objective, constraints=lc, bounds=bnd)
+    rl, ru = np.maximum(model.row_lower, -1e30), np.minimum(model.row_upper, 1e30)
+    cl, cu = np.maximum(model.col_lower, -1e30), np.minimum(model.col_upper, 1e30)
+    if ipm:
+        import scipy.sparse as sp
+
+        A = model.matrix.tocsr()
+        eq = rl == ru
+        up, lo = ~eq & (ru < 1e30), ~eq & (rl > -1e30)
+        res = linprog(model.objective, A_ub=sp.vstack([A[up], -A[lo]]),
+                      b_ub=np.concatenate([ru[up], -rl[lo]]), A_eq=A[eq], b_eq=rl[eq],
+                      bounds=np.stack([cl, cu], axis=1), method="highs-ipm")
+    else:
+        res = milp(model.objective, constraints=LinearConstraint(model.matrix.tocsc(), rl, ru),
+                   bounds=Bounds(cl, cu))
     if not res.success:
         raise AssertionError(f"HiGHS failed on the reference LP: {res.message}")
     return float(res.fun)
@@ -411,6 +433,261 @@ def main_path(label: str, use_k2: bool, price_mode: str = "auto") -> dict:
           f"solve phases={ {k: round(v, 3) for k, v in sol.timings.items() if isinstance(v, float)} }",
           flush=True)
     return {"label": label, "launches": launches, "objective": sol.objective_value}
+
+
+def window_lp(m: int, ncols: int, win: int, seed: int):
+    """Local-window LP with sporadic long-range skips: sparse normal
+    equations that are not banded under RCM (the general-sparse case).
+    The generator of tests/test_sparse_chol.py, building a port Model."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import Model
+
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for i in range(m):
+        base = int(i * (ncols - win) / m)
+        for j in base + rng.choice(win, 12, replace=False):
+            rows.append(i), cols.append(j), vals.append(rng.normal())
+        if rng.random() < 0.15:
+            rows.append(i), cols.append(int(rng.integers(0, ncols))), vals.append(rng.normal())
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(m, ncols)).tocsc()
+    b = A @ rng.random(ncols)
+    model = Model()
+    model.load_problem(A, np.zeros(ncols), np.full(ncols, 3.0), rng.normal(size=ncols),
+                       b - rng.random(m), b + rng.random(m))
+    return model
+
+
+def barrier_models():
+    """The barrier phase's three LPs: (label, model factory, method, the
+    Newton branch expected, crossover?, KKT tolerance, HiGHS by its IPM?)."""
+    from clp_tpu_torch.utils.generators import random_lp
+
+    return [
+        ("staircase", staircase_model, "BARRIER", "banded nb=256", True, 1e-6, False),
+        ("random 1024x1792", lambda: random_lp(1024, 1792, seed=0, density=0.05),
+         "BARRIER", "dense mixed32", True, 1e-6, True),
+        ("window 4096x8192", lambda: window_lp(4096, 8192, 40, 3),
+         "AUTOMATIC", "device multifrontal", False, 1e-5, False),
+    ]
+
+
+def launches_of(fn) -> int:
+    """Kernel launches of one call of fn on the card (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of fn to a synchronized device, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def barrier_branch(dev, label, model, branch) -> dict:
+    """Assert on the LP's IPM form the branch the port's planners pick
+    (`_rcm_band_plan`; `_barrier_plan`, which calls
+    `make_device_normal_solver` on the card; `_auto_method`), and time one
+    factorization of it (d = 1: the normal matrix G G' + reg)."""
+    import dataclasses
+
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.constants import SolveMethod
+    from clp_tpu_torch.forms import to_ipm_form
+    from clp_tpu_torch.interior import IPMOptions, ipm_solve
+    from clp_tpu_torch.ops.sparse_chol_device import DeviceNormalSolver
+    from clp_tpu_torch.ops.linalg import block_tridiag_cholesky, chol_factor_reg
+    from clp_tpu_torch.solve import _auto_method, _barrier_plan, _rcm_band_plan
+
+    lp, _ = to_ipm_form(model, device="cpu")
+    G = lp.G.numpy()
+    m, nt = G.shape
+    perm, nb = _rcm_band_plan(G)
+    planned = _barrier_plan(G, IPMOptions(mixed32=True), dev)[1]
+    reg = IPMOptions().reg_dual + 1e-12
+    d = torch.ones(nt, dtype=torch.float64, device=dev)
+    info = {"label": label, "m": m, "nt": nt, "nnz": int(np.count_nonzero(G))}
+    if branch.startswith("banded"):
+        if perm is None or f"banded nb={nb}" != branch or planned.band_nb != nb:
+            raise AssertionError(f"{label}: RCM band plan gave nb={nb}, expected {branch}")
+        # the block form ipm_solve assembles: rows in RCM order, padded
+        # rows carrying an identity
+        mpad = -(-m // nb) * nb
+        Gb = torch.zeros((mpad, nt), dtype=torch.float64, device=dev)
+        Gb[:m] = torch.as_tensor(G[np.ascontiguousarray(perm)], device=dev)
+        Gb = Gb.reshape(-1, nb, nt)
+        pad = (torch.arange(mpad, device=dev) >= m).to(torch.float64).reshape(-1, nb)
+        A = (torch.bmm(Gb * d, Gb.mT) + torch.diag_embed(pad)
+             + reg * torch.eye(nb, dtype=torch.float64, device=dev))
+        E = torch.bmm(Gb[1:] * d, Gb[:-1].mT)
+
+        def factor():
+            return block_tridiag_cholesky(A, E)
+    elif branch == "dense mixed32":
+        if perm is not None or planned.sparse_chol_device is not None or not planned.mixed32:
+            raise AssertionError(f"{label}: expected the dense normal equations, "
+                                 f"got nb={nb}, {planned}")
+        G32 = torch.as_tensor(G, dtype=torch.float32, device=dev)
+        M32 = G32 @ G32.T
+        s32 = torch.rsqrt(torch.diagonal(M32) + reg)
+        Ms = M32 * s32[:, None] * s32[None, :] + torch.diag(reg * s32 * s32 + 1e-7)
+
+        def factor():
+            return chol_factor_reg(Ms)
+
+        # the card's setting against the CPU's on this form: the IPM alone
+        # with mixed32 and in f64 (ROADMAP.md queue 4)
+        lp_dev = dataclasses.replace(lp, **{k: getattr(lp, k).to(dev)
+                                            for k in ("G", "b", "c", "l", "u")})
+        for m32 in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ipm_solve(lp_dev, IPMOptions(max_iter=200, mixed32=m32))
+            secs = time.perf_counter() - t0
+            info[f"ipm_{'mixed32' if m32 else 'f64'}"] = (int(res.iterations),
+                                                         bool(res.converged), secs)
+            print(f"barrier IPM alone [{label}, {'mixed32' if m32 else 'f64'}]: "
+                  f"{int(res.iterations)} iterations, converged={bool(res.converged)}, "
+                  f"{secs:.3f} s ({1e3 * secs / max(int(res.iterations), 1):.1f} ms/iteration), "
+                  f"primal infeasibility {float(res.primal_infeas):.2e}, "
+                  f"gap {float(res.rel_gap):.2e}", flush=True)
+    else:
+        auto = _auto_method(model, SolveOptions(device=dev.type))
+        if perm is not None or planned.sparse_chol_device is None or \
+                auto != SolveMethod.BARRIER_NO_CROSS:
+            raise AssertionError(f"{label}: expected AUTOMATIC -> BARRIER_NO_CROSS on the "
+                                 f"device multifrontal, got {auto!r}, nb={nb}")
+        solver = planned.sparse_chol_device
+        info["buckets"] = sum(1 for _ in solver.dev.buckets())
+        info["levels"] = len(solver.dev.schedule)
+        # the card's f32 factor against f64 on this form: the IPM alone on
+        # the same plan in f64 (ROADMAP.md queue 4); the solve below runs f32
+        lp_dev = dataclasses.replace(lp, **{k: getattr(lp, k).to(dev)
+                                            for k in ("G", "b", "c", "l", "u")})
+        f64 = DeviceNormalSolver(sp.csr_matrix(G), solver.plan, reg, torch.float64, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ipm_solve(lp_dev, IPMOptions(max_iter=200, sparse_chol_device=f64))
+        secs = time.perf_counter() - t0
+        info["ipm_f64"] = (int(res.iterations), bool(res.converged), secs)
+        print(f"barrier IPM alone [{label}, device multifrontal f64]: "
+              f"{int(res.iterations)} iterations, converged={bool(res.converged)}, "
+              f"{secs:.3f} s ({1e3 * secs / max(int(res.iterations), 1):.1f} ms/iteration), "
+              f"primal infeasibility {float(res.primal_infeas):.2e}, "
+              f"gap {float(res.rel_gap):.2e}", flush=True)
+
+        def factor():
+            fstate, ok = solver.factor(d)
+            if not bool(ok):
+                raise AssertionError(f"{label}: multifrontal factor of G G' failed")
+            return fstate
+
+        (f1, _), (f2, _) = factor(), factor()
+        if not all(torch.equal(a, b) for a, b in zip(f1, f2)):
+            raise AssertionError(f"{label}: two factorizations differ in their bits")
+        info["same_bits"] = True
+    info["factor_ms"] = host_ms(factor)
+    info["factor_launches"] = launches_of(factor) if dev.type == "cuda" else None
+    print(f"barrier branch [{label}]: IPM form {m} x {nt} ({info['nnz']} nonzeros), "
+          f"{branch} as planned; one factorization {info['factor_ms']:.2f} ms, "
+          f"{info['factor_launches']} launches"
+          + (f" ({info['buckets']} buckets in {info['levels']} levels, "
+             "2 factorizations bit-identical)" if "buckets" in info else ""), flush=True)
+    return info
+
+
+def barrier_path(dev, label, make, method, branch, crossover, kkt_tol, highs_ipm) -> dict:
+    """One barrier solve through the public entry point, with the launch
+    counts of exactly this run; checked for status, KKT, the branch taken,
+    the crossover's K1 and the objective against HiGHS."""
+    from clp_tpu_torch import SolveOptions, check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.ops.pivot import fused_pivot_update
+    from clp_tpu_torch.ops.price import price_and_ratios, price_and_ratios_block
+
+    model = make()
+    opts = SolveOptions(method=SolveMethod[method], device=dev.type)
+    price_and_ratios.launches = 0
+    fused_pivot_update.launches = 0
+    price_and_ratios_block.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = initial_solve(model, opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": price_and_ratios.launches, "K2": fused_pivot_update.launches,
+                "K3": price_and_ratios_block.launches}
+    stats = sol.timings.get("barrier_stats")
+    if sol.status != ProblemStatus.OPTIMAL:
+        raise AssertionError(f"barrier [{label}]: status {sol.status!r}, expected OPTIMAL")
+    # an IPM that stops short is finished by the crossover (or, without
+    # one, adjudicated by the simplex), as in the JAX package; the gates
+    # are the answer's, below
+    if stats is None or stats["branch"] != branch:
+        raise AssertionError(f"barrier [{label}]: barrier stats {stats}, expected the "
+                             f"{branch} branch")
+    rep = check_kkt(model, x=sol.primal, y=sol.duals, tol=kkt_tol)
+    if not rep.ok:
+        raise AssertionError(f"barrier [{label}]: KKT check at {kkt_tol} failed: {rep}")
+    # on the card the simplex that follows the IPM (the crossover, or the
+    # adjudication of an IPM that did not converge) prices through K1
+    # (dense route); no other kernel runs
+    simplex = crossover or not stats["converged"]
+    if (launches["K1"] > 0) != (simplex and dev.type == "cuda") or \
+            launches["K2"] or launches["K3"]:
+        raise AssertionError(f"barrier [{label}]: wrong kernels launched: {launches}")
+    ref = highs_objective(model, ipm=highs_ipm)
+    if not abs(sol.objective_value - ref) <= 1e-6 * (1 + abs(ref)):
+        raise AssertionError(f"barrier [{label}]: objective {sol.objective_value!r} "
+                             f"vs HiGHS {ref!r}")
+    pivots = sol.iterations if simplex else 0
+    finish = "crossover" if crossover else "adjudication" if simplex else "no simplex"
+    print(f"barrier path [{label}, {method}]: OPTIMAL obj={sol.objective_value!r} "
+          f"(HiGHS {ref!r}), KKT ok at {kkt_tol}, {branch}; IPM {stats['iterations']} "
+          f"iterations ({'converged' if stats['converged'] else 'NOT converged'}) "
+          f"in {stats['seconds']:.3f} s "
+          f"({1e3 * stats['seconds'] / max(stats['iterations'], 1):.1f} ms/iteration), "
+          f"{finish} pivots={pivots}, solve wall={wall:.3f} s, launches={launches}, "
+          f"phases={ {k: round(v, 3) for k, v in sol.timings.items() if isinstance(v, float)} }",
+          flush=True)
+    return {"label": label, "launches": launches, "ipm_iterations": stats["iterations"],
+            "ipm_converged": stats["converged"], "ipm_seconds": stats["seconds"],
+            "pivots": pivots, "wall": wall}
+
+
+def barrier_phase(dev) -> list:
+    """The barrier's branch checks, then its three solves against HiGHS,
+    and AUTOMATIC's choice of the dual simplex for the staircase here."""
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.constants import SolveMethod
+    from clp_tpu_torch.solve import _auto_method
+
+    auto = _auto_method(staircase_model(), SolveOptions(device=dev.type))
+    if auto != SolveMethod.DUAL_SIMPLEX:
+        raise AssertionError(f"AUTOMATIC chose {auto!r} for the staircase on the card, "
+                             "expected DUAL_SIMPLEX")
+    print(f"AUTOMATIC on the staircase ({dev.type}): {auto.name}", flush=True)
+    runs = []
+    for label, make, method, branch, crossover, kkt_tol, highs_ipm in barrier_models():
+        info = barrier_branch(dev, label, make(), branch)
+        runs.append(info | barrier_path(dev, label, make, method, branch, crossover,
+                                        kkt_tol, highs_ipm))
+    return runs
 
 
 def profile_pivots(dev, route: str, pivots: int = 200) -> None:
@@ -551,6 +828,7 @@ def main() -> int:
                                  f"vs HiGHS {highs_obj!r}")
     print(f"HiGHS objective {highs_obj!r}: all three main-path runs agree within "
           f"1e-6 * (1 + |obj|)", flush=True)
+    barrier_phase(dev)
     # each in a process of its own: torch.profiler leaves state behind that
     # slows the host side of its process, and the same pivots ran slower
     # after the solves above than in a fresh process

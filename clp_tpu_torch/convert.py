@@ -1,10 +1,11 @@
 """Carry LP and simplex state between numpy and the port's tensors.
 
-The JAX package's `StandardLP` and `SimplexState` are pytrees of arrays;
-their fields, as numpy arrays in a `{name: array}` dict, go through
-`*_from_numpy` to the port's dataclasses on a chosen device, and back
-through `*_to_numpy`. The tests hand one mid-solve state to both engines
-this way, and compare what comes out.
+The JAX package's `StandardLP`, `SimplexState` and `IPMResult` are
+pytrees of arrays; their fields, as numpy arrays in a `{name: array}` dict,
+go through `*_from_numpy` to the port's dataclasses on a chosen device, and
+back through `*_to_numpy`. `FormInfo` (host bookkeeping of a form) carries
+the same way. The tests hand one mid-solve state or one IPM form to both
+packages this way, and compare what comes out.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .forms import StandardLP
+from .forms import FormInfo, StandardLP
+from .interior.mehrotra import IPMResult
 from .simplex.engine import SimplexState
 
 # dtypes the port keeps per SimplexState field where JAX's differ
@@ -66,3 +68,17 @@ def block_forms_from_numpy(blk, device) -> tuple:
 def block_forms_to_numpy(blk) -> tuple:
     starts, W, m8 = blk
     return starts.detach().cpu().numpy(), W.detach().cpu().numpy(), int(m8)
+
+
+def form_info_from_numpy(fields: dict) -> FormInfo:
+    return FormInfo(**{f.name: fields.get(f.name) for f in dataclasses.fields(FormInfo)})
+
+
+def ipm_result_from_numpy(fields: dict, device) -> IPMResult:
+    return IPMResult(**{f.name: _tensor(fields[f.name], device)
+                        for f in dataclasses.fields(IPMResult)})
+
+
+def ipm_result_to_numpy(res: IPMResult) -> dict:
+    return {f.name: getattr(res, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(res)}

@@ -11,7 +11,8 @@ variables (ClpSimplex status bytes cover rows and columns alike,
 ClpSimplex.hpp:119-126), but collapses Clp's six matrix classes into a single
 dense device tensor.
 
-The interior-point form (`to_ipm_form`) waits for the barrier's port.
+The interior-point form (`to_ipm_form`) also substitutes fixed variables
+out; `expand_ipm_solution` puts them back.
 """
 
 from __future__ import annotations
@@ -88,3 +89,69 @@ def to_standard_form(model, dtype=torch.float64,
                     u=dev_t(u), Q=Q_dev)
     info = FormInfo(n=n, m=m, sense=sense, offset=model.objective_offset)
     return lp, info
+
+
+def to_ipm_form(model, dtype=torch.float64,
+                device="cuda") -> tuple[StandardLP, FormInfo]:
+    """Standard form with fixed variables substituted out (IPM flavor).
+
+    Built on the host in numpy; the tensors land on `device`. The barrier
+    asks for the CPU form first, plans its normal equations on those
+    arrays (`.numpy()` views) and moves the final form to the card once.
+    """
+    dev = resolve_device(device)
+    A = np.asarray(model.matrix.todense(), dtype=np.float64)
+    m, n = A.shape
+    sense = model.optimization_direction if model.optimization_direction != 0 else 1.0
+    G = np.concatenate([A, -np.eye(m)], axis=1)
+    c = np.concatenate([model.objective * sense, np.zeros(m)])
+    l = np.concatenate([model.col_lower, model.row_lower])
+    u = np.concatenate([model.col_upper, model.row_upper])
+    l = np.where(l <= -INF, -np.inf, l)
+    u = np.where(u >= INF, np.inf, u)
+
+    fixed = l == u
+    kept = np.flatnonzero(~fixed)
+    fixed_idx = np.flatnonzero(fixed)
+    b = np.zeros(m)
+    if fixed_idx.size:
+        b = b - G[:, fixed_idx] @ l[fixed_idx]
+    offset_extra = float(c[fixed_idx] @ l[fixed_idx]) if fixed_idx.size else 0.0
+
+    Q = None
+    if model.quadratic_objective is not None:
+        nt = n + m
+        Qfull = np.zeros((nt, nt))
+        Qfull[:n, :n] = np.asarray(model.quadratic_objective.todense()) * sense
+        if fixed_idx.size:
+            vals = l[fixed_idx]
+            # cross terms with fixed variables fold into c and the offset
+            c = c + Qfull[:, fixed_idx] @ vals
+            offset_extra += 0.5 * float(vals @ (Qfull[np.ix_(fixed_idx, fixed_idx)] @ vals))
+        Q = Qfull[np.ix_(kept, kept)]
+
+    def dev_t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    lp = StandardLP(G=dev_t(G[:, kept]), b=dev_t(b), c=dev_t(c[kept]),
+                    l=dev_t(l[kept]), u=dev_t(u[kept]),
+                    Q=None if Q is None else dev_t(Q))
+    info = FormInfo(
+        n=n,
+        m=m,
+        sense=sense,
+        offset=model.objective_offset + offset_extra * sense,
+        kept=kept,
+        fixed_values=np.where(fixed, l, 0.0),
+    )
+    return lp, info
+
+
+def expand_ipm_solution(info: FormInfo, v_kept: np.ndarray) -> np.ndarray:
+    """Re-insert fixed variables into the nt = n + m vector."""
+    nt = info.n + info.m
+    v = np.array(info.fixed_values, dtype=np.float64, copy=True)
+    v[info.kept] = np.asarray(v_kept, dtype=np.float64)
+    if v.shape != (nt,):
+        raise ValueError(f"expanded IPM solution has shape {v.shape}, expected ({nt},)")
+    return v

@@ -88,12 +88,10 @@ class SolveOptions:
     barrier_tolerance: float = 1e-8
     crossover: bool = True
     barrier_regularize: bool = False  # gamma/delta boost (100x regularization)
-    # mixed-precision barrier: f32 MXU normal-equations assembly/factor with
-    # Jacobi scaling + f64 matvec refinement. "auto" = on when running on
-    # TPU (f64 there is emulated: dominated both iteration wall time and
-    # the 18-25 min server-side compiles); True/False force it. When the
-    # mixed32 IPM exits non-converged, the solve escalates once to full-f64
-    # normal equations (CPU / QP) or the simplex adjudication (TPU LPs).
+    # mixed-precision barrier: f32 dense normal-equations assembly/factor
+    # with Jacobi scaling + f64 matvec refinement. "auto" = on for CUDA
+    # solves, mirroring the JAX package's TPU setting; True/False force it.
+    # An LP whose IPM exits non-converged is finished by the simplex.
     barrier_mixed32: object = "auto"
     # numerics
     dtype: str = "float64"

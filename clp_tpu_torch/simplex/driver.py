@@ -142,28 +142,28 @@ def _warm_state(lp, opts: SimplexOptions, warm: Solution, n: int, m: int) -> Sim
         order = np.argsort(-np.minimum(interior, 1e20))
         # candidate pool: clearly-interior variables first, then slacks
         pool = order[: min(nt, 4 * m)]
-        try:
-            # device-side independent-column selection: row-pivoted LU on
-            # the TRANSPOSED candidate block — partial pivoting permutes
-            # rows of Gp^T (= columns of Gp), and scaling each column by an
-            # interiority weight makes the pivoting follow our preference
-            # except where columns are (near-)dependent. f32: it only
-            # *selects*; the basis itself is refactorized in f64 afterwards.
-            Gp = lp.G[:, torch.as_tensor(pool, device=lp.G.device)]
-            norms = torch.linalg.vector_norm(Gp, dim=0)
-            norms = torch.where(norms > 1e-12, norms, 1.0)
-            weights = torch.exp(-torch.arange(pool.size, dtype=Gp.dtype,
-                                              device=Gp.device) / max(m, 1))
-            A32 = ((Gp / norms) * weights).T.to(torch.float32)
-            lu, piv, _ = torch.linalg.lu_factor_ex(A32)
-            d = np.abs(_np(torch.diagonal(lu)))
-            sel = _lu_row_permutation(_np(piv), pool.size)[:m]
-            dmax = float(d.max(initial=1.0))
-            rank_cols = [
-                int(pool[s]) for s, dv in zip(sel, d) if dv > 1e-6 * dmax
-            ]
-        except RuntimeError:
-            rank_cols = list(range(n, nt))  # fall back to slack basis
+        # device-side independent-column selection: row-pivoted LU on
+        # the TRANSPOSED candidate block — partial pivoting permutes
+        # rows of Gp^T (= columns of Gp), and scaling each column by an
+        # interiority weight makes the pivoting follow our preference
+        # except where columns are (near-)dependent. f32: it only
+        # *selects*; the basis itself is refactorized in f64 afterwards.
+        # `lu_factor_ex` reports a singular block in `info` and zero
+        # pivots, and raises on nothing else: no handler here, so a CUDA
+        # error is never turned into a slack-basis crossover.
+        Gp = lp.G[:, torch.as_tensor(pool, device=lp.G.device)]
+        norms = torch.linalg.vector_norm(Gp, dim=0)
+        norms = torch.where(norms > 1e-12, norms, 1.0)
+        weights = torch.exp(-torch.arange(pool.size, dtype=Gp.dtype,
+                                          device=Gp.device) / max(m, 1))
+        A32 = ((Gp / norms) * weights).T.to(torch.float32)
+        lu, piv, _ = torch.linalg.lu_factor_ex(A32)
+        d = np.abs(_np(torch.diagonal(lu)))
+        sel = _lu_row_permutation(_np(piv), pool.size)[:m]
+        dmax = float(d.max(initial=1.0))
+        rank_cols = [
+            int(pool[s]) for s, dv in zip(sel, d) if dv > 1e-6 * dmax
+        ]
         chosen = set()
         for j in rank_cols:
             if len(chosen) < m:

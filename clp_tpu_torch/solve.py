@@ -3,12 +3,14 @@
 Mirrors the reference's dispatcher flow (ClpSolve.cpp:845-4070):
   1. empty-problem short-circuit (:877-906)
   2. presolve (:955-1076)
-  3. run the chosen method (dual / primal simplex)
-  4. postsolve + cleanup solve if residual infeasibilities remain
-  5. final status, timing
+  3. problem analysis & automatic method choice (:1276-1760)
+  4. run the chosen method (dual / primal simplex, barrier + crossover)
+  5. postsolve + cleanup solve if residual infeasibilities remain
+  6. final status, timing
 
-The port runs the DUAL_SIMPLEX and PRIMAL_SIMPLEX methods. Every other
-route raises NotImplementedError naming its ROADMAP.md item.
+The port runs DUAL_SIMPLEX, PRIMAL_SIMPLEX, BARRIER, BARRIER_NO_CROSS and
+AUTOMATIC where it lands on one of those. Every other route raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -18,11 +20,22 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .constants import INF, ProblemStatus, ScalingMode, SecondaryStatus, SolveMethod
 from .device import resolve_device
+from .forms import expand_ipm_solution, to_ipm_form
 from .model import Model, Solution
 from .options import SolveOptions
+
+# what the JAX package runs for each AUTOMATIC choice the port lacks
+_AUTO_UNPORTED = {
+    SolveMethod.NETWORK: "network.py",
+    SolveMethod.GUB: "gub.py",
+    SolveMethod.DECOMPOSE: "structure.py, decompose.py",
+    SolveMethod.SPRINT: "sprint.py",
+    SolveMethod.PDLP: "pdlp.py",
+}
 
 
 def _not_ported(what: str, item: str):
@@ -41,7 +54,7 @@ def _empty_solution(model: Model) -> Solution:
     c = model.objective
     l, u = model.col_lower, model.col_upper
     if model.quadratic_objective is not None:
-        raise _not_ported("a quadratic objective", "the other solvers (simplex/qp.py)")
+        raise _not_ported("a quadratic objective", "solve-level QP")
     unbounded = False
     if n == 0:
         x = np.zeros(0)
@@ -67,6 +80,322 @@ def _empty_solution(model: Model) -> Solution:
     if infeas_col or infeas_row:
         sol.status = ProblemStatus.PRIMAL_INFEASIBLE
     return sol
+
+
+def _auto_idiot(model: Model) -> bool:
+    """doIdiot analogue, built from the reference's decision surface
+    (ClpSolve.cpp:1276-1726):
+
+      * tryIt gate (:1663): rows > 200, cols > 2000-ish, cols > 2*rows
+        — wide enough that the descent point pays for itself;
+      * free columns kill it (:1622-1623 ``if (nFree) doIdiot = 0``);
+      * rhs statistics (:1628-1670): every finite nonzero rhs entry must
+        be (near-)integral, and the magnitude range must be tame
+        (ratio <= 10, and <= 2 when values exceed 50);
+      * element structure (:1530-1568, :1684 ``numberElements <= 3 *
+        numberColumns``): mostly-unit entries OR very sparse columns.
+
+    As in the JAX package, the idiot point feeds the DUAL's values pass
+    (the idiot crash itself is not ported yet).
+    """
+    m, n = model.num_rows, model.num_cols
+    # tryIt gate, with the JAX package's measured upper width cap (beyond
+    # ~8*m the sprint working-set route wins)
+    if m <= 200 or n <= 1500 or n <= 2 * m or n > 8 * m:
+        return False
+    A = model.matrix
+    if A.nnz == 0:
+        return False
+    # free columns switch idiot off (:1622-1623)
+    cl, cu = model.col_lower, model.col_upper
+    if bool(np.any((cl < -1e10) & (cu > 1e10))):
+        return False
+    # rhs statistics: integrality + magnitude range (:1628-1670)
+    vals = []
+    for a in (model.row_lower, model.row_upper):
+        a = np.asarray(a, dtype=np.float64)
+        vals.append(a[(a != 0.0) & (np.abs(a) < 1e30)])
+    rhs = np.abs(np.concatenate(vals)) if vals else np.zeros(0)
+    if rhs.size:
+        if bool(np.any(np.abs(rhs - np.round(rhs)) > 1e-8)):
+            return False
+        largest = float(rhs.max())
+        smallest = float(rhs.min())
+        if largest / smallest > 10.0 or (largest / smallest > 2.0 and largest > 50.0):
+            return False
+    # element structure: unit-heavy or very sparse columns
+    unit_frac = float(np.mean(np.abs(A.data) == 1.0))
+    return unit_frac >= 0.8 or A.nnz <= 3 * n
+
+
+def _matrix_fingerprint(model: Model) -> tuple:
+    """Content key for per-matrix probe caches (id() can be reused after
+    free AND survives in-place edits — a stale hit would silently flip
+    routing). crc32 over the pattern arrays + a data sample is O(nnz)."""
+    import zlib
+
+    A = model.matrix
+    crc = zlib.crc32(np.ascontiguousarray(A.indptr).tobytes())
+    crc = zlib.crc32(np.ascontiguousarray(A.indices).tobytes(), crc)
+    d = np.ascontiguousarray(A.data)
+    sample = d if d.size <= 65536 else np.concatenate([d[:32768], d[-32768:]])
+    crc = zlib.crc32(sample.tobytes(), crc)
+    return (A.shape, A.nnz, crc)
+
+
+def _auto_method(model: Model, options: SolveOptions,
+                 idiot_hint: Optional[bool] = None) -> SolveMethod:
+    """Automatic method choice from shape statistics.
+
+    The JAX package's policy, modeled on the reference's doIdiot/doSprint
+    heuristics (ClpSolve.cpp:1276-1760). Its one backend test (the TPU
+    takes the mixed-precision dual simplex from m >= 512) asks here
+    whether the solve runs on the card.
+    """
+    m, n = model.num_rows, model.num_cols
+    if model.quadratic_objective is not None:
+        return SolveMethod.BARRIER_NO_CROSS
+    if m == 0 or n == 0:
+        return SolveMethod.DUAL_SIMPLEX
+    # pure networks: spanning-tree basis, no factorization at all
+    if model.detect_structure()["network"]:
+        return SolveMethod.NETWORK
+    # GUB-dominated LPs: the key-variable engine pivots on the small
+    # general-row working basis (ClpGubMatrix role)
+    if m <= 20000 and n <= 200000:
+        from .gub import detect_gub
+
+        sets = detect_gub(model)
+        K = len(sets)
+        m_g = m - K
+        covered = sum(int(gs.cols.size) for gs in sets)
+        if (K >= 8 and K >= m // 2 and covered >= n // 2
+                and m_g * (n + K + m_g) * 8 <= 1 << 30):
+            return SolveMethod.GUB
+    # detected two-stage scenario structure routes to Benders (the
+    # CoinStructuredModel decomposeType dispatch, ClpSolve.cpp:4910-4924);
+    # probed only where the decomposition can win, cached per matrix
+    if m >= 192 and n >= 192 and model.num_elements >= 512:
+        from .structure import detect_two_stage
+
+        key = _matrix_fingerprint(model)
+        cached = getattr(model, "_two_stage_probe_cache", None)
+        if cached is not None and cached[0] == key:
+            det = cached[1]
+        else:
+            det = detect_two_stage(model)
+            model._two_stage_probe_cache = (key, det)
+        if det is not None:
+            return SolveMethod.DECOMPOSE
+    wants_idiot = _auto_idiot(model) if idiot_hint is None else idiot_hint
+    if wants_idiot:
+        # wide + unit-heavy: idiot-crash values-pass dual (doIdiot role)
+        return SolveMethod.DUAL_SIMPLEX
+    if n > 6 * m and n > 2000:
+        return SolveMethod.SPRINT  # wide LPs: column-subset working sets
+    # beyond-dense-scale sparse instances go to the first-order PDLP ...
+    nnz = model.num_elements
+    dense_bytes = m * (n + m) * 8
+    if (dense_bytes > 4 << 30 and nnz < 0.02 * m * n) or (
+        m >= 4096 and nnz < 0.01 * m * n
+    ):
+        # ... unless the sparse NORMAL EQUATIONS factor in O(fill): then
+        # the multifrontal barrier reaches full accuracy directly, without
+        # the crossover's dense dual at this scale
+        if 4096 <= m <= 8192 and dense_bytes <= 4 << 30:
+            import scipy.sparse as sp
+
+            from .ops.sparse_chol import make_normal_solver
+
+            key = _matrix_fingerprint(model)
+            cached = getattr(model, "_normal_probe_cache", None)
+            if cached is not None and cached[0] == key:
+                probe = cached[1]
+            else:
+                # routing probe only: _solve_barrier rebuilds the solver
+                # from the actual IPM form (fixed columns may be dropped)
+                probe = make_normal_solver(
+                    sp.hstack([model.matrix, sp.eye(m)]).tocsr(), reg=1e-10)
+                model._normal_probe_cache = (key, probe)
+            if probe is not None:
+                return SolveMethod.BARRIER_NO_CROSS
+        return SolveMethod.PDLP
+    # the JAX package's TPU branch: the mixed-precision dual simplex from
+    # m >= 512 on the accelerator, the barrier elsewhere. Whether the
+    # card, with its native f64, wants the barrier instead is open
+    # (ROADMAP.md queue 4).
+    if m >= 512 and resolve_device(options.device).type == "cuda":
+        return SolveMethod.DUAL_SIMPLEX
+    return SolveMethod.BARRIER
+
+
+def _ipm_to_solution(model: Model, res, info, options: SolveOptions) -> Solution:
+    n, m = info.n, info.m
+    sense = info.sense
+    v = expand_ipm_solution(info, res.x.cpu().numpy())
+    x = v[:n]
+    # reduced costs in user sense: d_user = c_user - A'y_user
+    y = res.y.cpu().numpy() * sense
+    A = model.matrix
+    d = model.objective - A.T @ y
+    row_act = A @ x
+    obj = float(model.objective @ x) + model.objective_offset
+
+    converged = bool(res.converged)
+    status = ProblemStatus.OPTIMAL if converged else ProblemStatus.STOPPED
+    secondary = SecondaryStatus.NONE
+    if not converged:
+        # crude divergence-based certificates; the simplex cleanup refines
+        if float(res.blowup) > 1e11 and float(res.primal_infeas) > options.barrier_tolerance:
+            status = ProblemStatus.PRIMAL_INFEASIBLE
+        elif float(np.max(np.abs(x), initial=0.0)) > 1e12:
+            status = ProblemStatus.DUAL_INFEASIBLE
+        else:
+            secondary = SecondaryStatus.FAILED_TO_CONVERGE
+    return Solution(
+        status=status,
+        secondary_status=secondary,
+        objective_value=obj,
+        primal=x,
+        duals=y,
+        reduced_costs=np.asarray(d),
+        row_activity=np.asarray(row_act),
+        iterations=int(res.iterations),
+    )
+
+
+def _rcm_band_plan(G: np.ndarray):
+    """RCM row ordering + bandwidth of pattern(G G') — the symbolic phase
+    of the sparse-Cholesky capability (ClpCholeskyBase.cpp:638 ordering).
+
+    Returns (perm, nb) with nb > 0 only when the banded block-tridiagonal
+    path is worthwhile (band narrow relative to m).
+    """
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    m = G.shape[0]
+    if m < 192:
+        return None, 0
+    Gs = sp.csr_matrix((np.abs(G) > 0).astype(np.int8))
+    S = (Gs @ Gs.T).tocsr()
+    perm = np.asarray(reverse_cuthill_mckee(S, symmetric_mode=True))
+    inv = np.empty(m, dtype=np.int64)
+    inv[perm] = np.arange(m)
+    Sp = S.tocoo()
+    band = int(np.max(np.abs(inv[Sp.row] - inv[Sp.col]), initial=0))
+    nb = max(64, band + 1)
+    nb = ((nb + 63) // 64) * 64  # blocks in multiples of 64
+    if nb * 3 > m:
+        return None, 0  # too wide: dense is better
+    return perm, nb
+
+
+def _barrier_plan(G: np.ndarray, opts, device: torch.device):
+    """The Newton branch for this IPM form: RCM-banded when its band is
+    narrow, else the sparse multifrontal normal equations when the
+    minimum-degree fill beats the dense O(m^3) (on the card the device
+    numeric in f32, on the CPU the host numeric), else dense. Returns
+    (row permutation or None, opts)."""
+    import scipy.sparse as sp
+
+    perm, nb = _rcm_band_plan(G)
+    if perm is not None:
+        return perm, dataclasses.replace(opts, band_nb=nb)
+    m = G.shape[0]
+    if m >= 512 and np.count_nonzero(G) < 0.02 * G.size:
+        G_csr = sp.csr_matrix(G)
+        reg = float(opts.reg_dual) + 1e-12
+        if device.type == "cuda":
+            from .ops.sparse_chol_device import make_device_normal_solver
+
+            solver = make_device_normal_solver(G_csr, reg=reg, dtype=torch.float32,
+                                               device=device)
+            if solver is not None:
+                return None, dataclasses.replace(opts, sparse_chol_device=solver)
+        else:
+            # the host numeric runs only off the card, as in the JAX
+            # package: a card model the device plan declines (dense
+            # columns) takes the dense mixed32 normal equations
+            from .ops.sparse_chol import make_normal_solver
+
+            solver = make_normal_solver(G_csr, reg=reg)
+            if solver is not None:
+                return None, dataclasses.replace(opts, sparse_chol=solver)
+    return None, opts
+
+
+def _solve_barrier(model: Model, options: SolveOptions) -> Solution:
+    """The barrier on the model's IPM form, on options.device: plan the
+    Newton branch on the host, run the IPM, map its point back."""
+    from .interior.mehrotra import IPMOptions, ipm_solve
+
+    if int(getattr(options, "shape_bucket", 0) or 0) > 0:
+        raise _not_ported("shape_bucket > 0 (the barrier's _pad_ipm_lp)", "shape_bucket")
+    device = resolve_device(options.device)
+    # the form is built and planned on the host, then moved once
+    lp, info = to_ipm_form(model, device="cpu")
+    boost = 100.0 if options.barrier_regularize else 1.0
+    mixed32 = getattr(options, "barrier_mixed32", "auto")
+    if mixed32 == "auto":
+        # the card: f32 assembly and factor + f64 refinement, the JAX
+        # package's TPU setting (ROADMAP.md queue 4 asks whether Hopper's
+        # native f64 wants otherwise)
+        mixed32 = device.type == "cuda"
+    opts = IPMOptions(
+        tol=options.barrier_tolerance,
+        max_iter=options.barrier_max_iterations,
+        reg_primal=1e-9 * boost,
+        reg_dual=1e-10 * boost,
+        mixed32=bool(mixed32),
+    )
+    perm, opts = _barrier_plan(lp.G.numpy(), opts, device)
+    if perm is not None:
+        # permute ROWS so the normal matrix is banded; x and columns are
+        # untouched, so only y needs unpermuting afterwards
+        perm = torch.as_tensor(np.ascontiguousarray(perm, dtype=np.int64))
+        lp = dataclasses.replace(lp, G=lp.G[perm], b=lp.b[perm])
+    lp = dataclasses.replace(lp, **{k: getattr(lp, k).to(device)
+                                    for k in ("G", "b", "c", "l", "u")})
+    t0 = time.perf_counter()
+    # no f64 retry of an unconverged mixed32 IPM: the JAX package retries
+    # only a QP (an LP that fails goes to the simplex, which finishes or
+    # adjudicates it in initial_solve), and QPs are not ported
+    res = ipm_solve(lp, opts)
+    from .events import get_handler
+
+    mh = get_handler(model, options)
+    if mh is not None:
+        if bool(res.converged):
+            mh.message("CLP_BARRIER_END", obj=float(res.pobj), it=int(res.iterations))
+        else:
+            mh.message(
+                "CLP_BARRIER_EXIT2",
+                why=f"not converged: gap {float(res.rel_gap):.3e} "
+                    f"pinf {float(res.primal_infeas):.3e}",
+            )
+    if perm is not None:
+        y_full = torch.empty_like(res.y)
+        y_full[perm.to(res.y.device)] = res.y
+        res = dataclasses.replace(res, y=y_full)
+    seconds = time.perf_counter() - t0
+    sol = _ipm_to_solution(model, res, info, options)
+    # the Newton branch taken and the IPM's own count and wall (the
+    # crossover's simplex keeps these beside its own statistics)
+    sol.timings = {"barrier_stats": {
+        "branch": _branch_name(opts), "iterations": int(res.iterations),
+        "converged": bool(res.converged), "seconds": seconds}}
+    return sol
+
+
+def _branch_name(opts) -> str:
+    if opts.band_nb > 0:
+        return f"banded nb={opts.band_nb}"
+    if opts.sparse_chol_device is not None:
+        return "device multifrontal"
+    if opts.sparse_chol is not None:
+        return "host multifrontal"
+    return "dense mixed32" if opts.mixed32 else "dense f64"
 
 
 def _solve_simplex(model: Model, options: SolveOptions, dual: bool,
@@ -144,7 +473,7 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
     ):
         raise _not_ported("dualize", "analysis/API/CLI (analysis.dualize)")
     if model.quadratic_objective is not None:
-        raise _not_ported("a quadratic objective", "the other solvers (simplex/qp.py)")
+        raise _not_ported("a quadratic objective", "solve-level QP")
 
     # --- rim scale factors (objScale / rhsScale dblParams,
     # ClpModel.hpp:1124-1161): scale in, unscale out ---
@@ -232,17 +561,10 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
                   if method in (SolveMethod.PRIMAL_SIMPLEX,
                                 SolveMethod.PRIMAL_IDIOT)
                   else SolveMethod.DUAL_SIMPLEX)
-    elif method == SolveMethod.AUTOMATIC:
-        raise _not_ported(
-            "AUTOMATIC method choice", "AUTOMATIC routing; pass "
-            "method=DUAL_SIMPLEX or PRIMAL_SIMPLEX")
-    elif method in (SolveMethod.BARRIER, SolveMethod.BARRIER_NO_CROSS):
-        raise _not_ported(f"method {method.name}", "barrier")
-    elif method not in (SolveMethod.DUAL_SIMPLEX, SolveMethod.PRIMAL_SIMPLEX):
+    elif method not in (SolveMethod.DUAL_SIMPLEX, SolveMethod.PRIMAL_SIMPLEX,
+                        SolveMethod.BARRIER, SolveMethod.BARRIER_NO_CROSS,
+                        SolveMethod.AUTOMATIC):
         raise _not_ported(f"method {method.name}", "the other solvers")
-    if pending_warm is None and options.crash in ("idiot", "triangular"):
-        raise _not_ported(f"the {options.crash} crash start",
-                          "the other solvers (crash.py)")
 
     # --- presolve ---
     presolved = None
@@ -294,6 +616,21 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
 
     if presolved is None:
         timings = {}
+    auto_idiot_dual = False
+    if method == SolveMethod.AUTOMATIC:
+        ai = _auto_idiot(work)
+        method = _auto_method(work, options, idiot_hint=ai)
+        auto_idiot_dual = method == SolveMethod.DUAL_SIMPLEX and ai
+        if method in _AUTO_UNPORTED:
+            raise _not_ported(f"AUTOMATIC's choice {method.name}",
+                              f"AUTOMATIC destinations ({_AUTO_UNPORTED[method]})")
+    if (method in (SolveMethod.DUAL_SIMPLEX, SolveMethod.PRIMAL_SIMPLEX)
+            and pending_warm is None):
+        crash = "idiot" if auto_idiot_dual else options.crash
+        if crash in ("idiot", "triangular"):
+            raise _not_ported(f"the {crash} crash start",
+                              "AUTOMATIC destinations (crash.py)" if auto_idiot_dual
+                              else "the other solvers (crash.py)")
 
     t_phase = time.time()
     # --- scaling (reference: ClpModel::scaling modes, applied pre-solve) ---
@@ -317,6 +654,34 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
     t_phase = time.time()
     if work.num_cols == 0 or work.num_rows == 0:
         sol = _empty_solution(work)
+    elif method in (SolveMethod.BARRIER, SolveMethod.BARRIER_NO_CROSS):
+        sol = _solve_barrier(work, options)
+        ipm_stats = sol.timings
+        if (
+            method == SolveMethod.BARRIER
+            and options.crossover
+            and sol.status in (ProblemStatus.OPTIMAL, ProblemStatus.STOPPED)
+        ):
+            # crossover: finish with a simplex from the interior solution
+            # (reference: ClpSolve.cpp:3585-3786 values-pass cleanup);
+            # dual finish — the IPM's duals are near-feasible
+            sol = _solve_simplex(work, options, dual=True, warm=sol)
+        elif (
+            sol.status == ProblemStatus.STOPPED
+            and sol.secondary_status == SecondaryStatus.FAILED_TO_CONVERGE
+        ):
+            # the raw IPM cannot certify infeasible/unbounded; when it
+            # fails to converge, adjudicate the STATUS with the simplex
+            # (reference: initialSolve falls back to a cleanup solve on
+            # barrier failure regardless of crossover settings)
+            adj = _solve_simplex(work, options, dual=True)
+            if adj.status in (
+                ProblemStatus.OPTIMAL,
+                ProblemStatus.PRIMAL_INFEASIBLE,
+                ProblemStatus.DUAL_INFEASIBLE,
+            ):
+                sol = adj
+        sol.timings = {**ipm_stats, **(sol.timings or {})}
     else:
         sol = _solve_simplex(work, options, dual=method == SolveMethod.DUAL_SIMPLEX,
                              warm=pending_warm)

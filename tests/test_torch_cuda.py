@@ -334,3 +334,94 @@ def test_block_route_through_k3_on_card(cuda_device, k2):
     assert abs(card.objective_value - cpu.objective_value) <= 1e-9 * (
         1 + abs(cpu.objective_value))
     assert check_kkt(model, x=card.primal, y=card.duals, tol=1e-6).ok
+
+
+def _window_G(m=640, ncols=1280, win=32, k=8, seed=5):
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for i in range(m):
+        base = int(i * (ncols - win) / m)
+        for j in base + rng.choice(win, k, replace=False):
+            rows.append(i), cols.append(int(j)), vals.append(rng.normal())
+    return sp.csr_matrix((vals, (rows, cols)), shape=(m, ncols))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_device_multifrontal_on_card(cuda_device, dtype):
+    """The device multifrontal numeric on the card against the host plan,
+    with the same bits over two factorizations (no atomics)."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch.ops.sparse_chol_device import make_device_normal_solver
+
+    G = _window_G()
+    m = G.shape[0]
+    solver = make_device_normal_solver(G, reg=1e-9, dtype=dtype, device="cuda")
+    assert solver is not None
+    rng = np.random.default_rng(6)
+    d = rng.random(G.shape[1]) + 0.01
+    rhs = rng.normal(size=m)
+    S = (G.multiply(d) @ G.T + 1e-9 * sp.eye(m)).tocsc()
+    assert solver.plan.factor(S)
+    x_host = solver.plan.solve(rhs)
+    dt = torch.as_tensor(d, device=cuda_device)
+    (f1, s1), ok1 = solver.factor(dt)
+    (f2, s2), ok2 = solver.factor(dt)
+    assert bool(ok1) and bool(ok2)
+    assert torch.equal(s1, s2) and all(torch.equal(a, b) for a, b in zip(f1, f2))
+    rt = torch.as_tensor(rhs, device=cuda_device)
+    x = solver.solve_with((f1, s1), rt)
+    assert torch.equal(x, solver.solve_with((f2, s2), rt))
+    for _ in range(3 if dtype == torch.float32 else 0):
+        x = x + solver.solve_with((f1, s1), rt - torch.as_tensor(S @ x.cpu().numpy(),
+                                                                  device=cuda_device))
+    x = x.cpu().numpy()
+    assert np.linalg.norm(S @ x - rhs) <= 1e-8 * np.linalg.norm(rhs)
+    np.testing.assert_allclose(x, x_host, rtol=1e-6, atol=1e-6 * np.abs(x_host).max())
+
+
+def test_block_tridiag_cholesky_on_card(cuda_device):
+    """The banded Cholesky and solve on the card against the CPU."""
+    from clp_tpu_torch.ops.linalg import block_tridiag_cholesky, block_tridiag_solve
+
+    rng = np.random.default_rng(1)
+    k, nb = 6, 64
+    m = k * nb
+    B = np.zeros((m, m + 8))
+    for i in range(m):
+        lo = max(0, i - 40)
+        B[i, lo:i + 3] = rng.standard_normal(i + 3 - lo)
+    M = B @ B.T + np.eye(m)
+    A = np.stack([M[i * nb:(i + 1) * nb, i * nb:(i + 1) * nb] for i in range(k)])
+    E = np.stack([M[(i + 1) * nb:(i + 2) * nb, i * nb:(i + 1) * nb] for i in range(k - 1)])
+    rhs = rng.standard_normal((k, nb))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        L, C, delta = block_tridiag_cholesky(torch.as_tensor(A, device=dev),
+                                             torch.as_tensor(E, device=dev))
+        x = block_tridiag_solve(L, C, torch.as_tensor(rhs, device=dev))
+        out[dev] = (L.cpu().numpy(), x.cpu().numpy(), float(delta))
+    assert out["cuda"][2] == out["cpu"][2] == 0.0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-10)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(M @ out["cuda"][1].ravel(), rhs.ravel(), atol=1e-8)
+
+
+def test_barrier_solve_on_card(cuda_device):
+    """A small BARRIER solve on the card (dense mixed32 normal equations,
+    then the crossover) agrees with the same solve on the CPU (f64)."""
+    from clp_tpu_torch import SolveOptions, check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.utils.generators import random_lp
+
+    cpu = initial_solve(random_lp(40, 70, seed=3, density=0.3),
+                        SolveOptions(method=SolveMethod.BARRIER, device="cpu"))
+    model = random_lp(40, 70, seed=3, density=0.3)
+    card = initial_solve(model, SolveOptions(method=SolveMethod.BARRIER, device="cuda"))
+    assert cpu.status == card.status == ProblemStatus.OPTIMAL
+    assert card.timings["barrier_stats"]["branch"] == "dense mixed32"
+    assert abs(card.objective_value - cpu.objective_value) <= 1e-9 * (
+        1 + abs(cpu.objective_value))
+    assert check_kkt(model, x=card.primal, y=card.duals, tol=1e-6).ok

@@ -104,8 +104,8 @@ def test_fp32_precision_guard():
 
 
 @pytest.mark.parametrize("kw, match", [
-    ({"method": "AUTOMATIC"}, "AUTOMATIC"),
-    ({"method": "BARRIER"}, "barrier"),
+    ({"method": "SPRINT"}, "other solvers"),
+    ({"method": "GUB"}, "other solvers"),
     ({"method": "PDLP"}, "other solvers"),
     ({"dual_pivot": "pesteepest"}, "pe"),
     ({"price_mode": "ell"}, "ell"),
