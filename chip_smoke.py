@@ -6,7 +6,8 @@ Builds the port's CUDA kernels from clp_tpu_torch/csrc (nvcc, sm_90a, one
 process per source, all started together), holds each kernel against its
 plain PyTorch version at the main path's shapes and times both (K1 and K3
 also for bit-identical results over 10 launches, K3 beside the device-side
-floor of an empty launch), then solves
+floor of an empty launch; K2 also above its one-pass limit, at m = 14,465
+and 16,384, on its two-pass path), then solves
 the 2048 x 4608 staircase LP end to end through
 `initial_solve(method=DUAL_SIMPLEX, device="cuda")` three times — with K1,
 with K1 + K2, and on the block-banded route `price_mode="block"` with K3 —
@@ -19,8 +20,12 @@ that branch and counts its launches, and solves three LPs against HiGHS
 then the crossover's dual simplex through K1), `random_lp(1024, 1792,
 density=0.05)` with `method=BARRIER` (dense mixed32 normal equations, then
 the crossover) and a 4096 x 8192 window LP with the default AUTOMATIC
-(BARRIER_NO_CROSS on the device multifrontal Cholesky). Last, each in a
-fresh process (`chip_smoke.py --profile-pivots dense|block`), it profiles
+(BARRIER_NO_CROSS on the device multifrontal Cholesky). Then the
+AUTOMATIC destinations (`auto_phase`): six LPs through the default
+`initial_solve`, each asserted to take its route — a covering LP the
+idiot-warm dual, a wide LP SPRINT, a tall LP its dual, a min-cost flow
+NETWORK, a GUB LP GUB, a large sparse LP PDLP with `crunch_polish` — and
+checked against HiGHS. Last, each in a fresh process (`chip_smoke.py --profile-pivots dense|block`), it profiles
 200 pivots of the engine on the dense route and on the block route. Every
 phase that fails exits non-zero.
 
@@ -282,6 +287,80 @@ def check_k2(dev, flush, G32):
             "replaces": "clp_tpu/ops/pallas_pivot.py:96",
             "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def check_k2_above_limit(dev, flush, m: int) -> dict:
+    """K2 past the one-pass kernel's shared memory (m > 14,464), where the
+    wrapper takes the two-pass path: held against the plain version with
+    gate 1 and gate 0, the same bits over 10 launches, and its time against
+    the same byte bound as the main path's K2 (binv read once and binv'
+    written once, plus the small vectors), not the two passes' traffic."""
+    from clp_tpu_torch.ops import pivot
+    from clp_tpu_torch.ops.pivot import fused_pivot_update, fused_pivot_update_reference
+
+    if m <= pivot._K2_MAX_M:
+        raise AssertionError(f"m = {m} is within the one-pass kernel's limit")
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(m)
+    # unit-norm rows, as in check_k2; g_q near rho so that the pivot
+    # element abar_r = rho . g_q is near 1, and a flip flow of N(0, 1)
+    binv = torch.randn(m, m, generator=g, device=dev, dtype=f32) / m ** 0.5
+    r = torch.tensor(m // 3, device=dev)
+    rho = binv[m // 3].clone()
+    gq = rho + torch.randn(m, generator=g, device=dev, dtype=f32) / m ** 0.5
+    triple = torch.stack([gq, rho, torch.randn(m, generator=g, device=dev, dtype=f32)],
+                         dim=1).contiguous()
+    abar_r = torch.dot(rho, gq)
+    one = torch.ones((), dtype=f32, device=dev)
+    bn, res = fused_pivot_update(binv, triple, rho, abar_r, one, r)
+    bp, rp = fused_pivot_update_reference(binv, triple, rho, abar_r, one, r)
+    torch.cuda.synchronize()
+    # sums of m products of unit-norm rows in two orders: a few f32 spacings
+    err = max(float((bn - bp).abs().max()), float((res - rp).abs().max()))
+    del bp, rp
+    if not err < 1e-4:
+        raise AssertionError(f"K2 at m={m} differs from its plain version by {err}")
+    bn0, _ = fused_pivot_update(binv, triple, rho, abar_r, 0.0 * one, r)
+    if not torch.equal(bn0, binv):
+        raise AssertionError(f"K2 at m={m} with gate = 0 changed binv")
+    del bn0
+    scal = torch.stack([1.0 / abar_r, one])
+    r32 = r.to(torch.int32).reshape(1)
+    bout = torch.empty_like(binv)
+    rout = torch.empty((m, 3), dtype=f32, device=dev)
+
+    def launch():
+        pivot._launch(binv, triple, rho, scal, r32, bout, rout)
+
+    launch()
+    b1, r1 = bout.clone(), rout.clone()
+    for i in range(1, 10):
+        launch()
+        if not (torch.equal(bout.view(torch.int32), b1.view(torch.int32))
+                and torch.equal(rout.view(torch.int32), r1.view(torch.int32))):
+            raise AssertionError(f"K2 at m={m}: launch {i + 1} differs in its bits")
+    del b1, r1, bn, res
+    ms = cold_ms(launch, flush)
+    plain = cold_ms(lambda: fused_pivot_update_reference(binv, triple, rho, abar_r, one, r),
+                    flush)
+    scratch = binv.clone()
+    factor = torch.empty(m, dtype=f32, device=dev)
+
+    def library():
+        R = binv @ triple
+        torch.div(R[:, 0], abar_r, out=factor)
+        return scratch.addr_(factor, rho, alpha=-1.0), R
+
+    lib = cold_ms(library, flush)
+    nbytes = 4 * (2 * m * m + 3 * m + m + 2 + 3 * m)
+    b_ms, b_by = bound(nbytes, 8 * m * m)
+    print(f"K2 fused_pivot_update above the one-pass limit, m={m} (two passes): "
+          f"max|err|={err:.3e}, gate=0 bit-exact, 10 launches bit-identical; "
+          f"kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, library {lib * 1e3:.1f} us, "
+          f"bound {b_ms * 1e3:.1f} us ({b_by}, {nbytes / 1e6:.1f} MB), "
+          f"{100 * b_ms / ms:.1f}% of the bound", flush=True)
+    return {"m": m, "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_k3(dev, flush, Gs, blk):
@@ -690,6 +769,272 @@ def barrier_phase(dev) -> list:
     return runs
 
 
+def covering_lp(m: int, n: int, seed: int = 0):
+    """A 0/1 covering LP, wide and unit-valued: the idiot crash's shape.
+    The generator of tests/test_torch_auto.py, building a port Model."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import INF, Model
+
+    rng = np.random.default_rng(seed)
+    A = sp.random(m, n, density=0.01, random_state=seed, format="csc")
+    A.data[:] = 1.0
+    A = (A + sp.csc_matrix((np.ones(n), (rng.integers(0, m, n), np.arange(n))),
+                           shape=(m, n))).tocsc()
+    A.data[:] = 1.0
+    model = Model()
+    model.load_problem(A, np.zeros(n), np.ones(n), rng.integers(1, 5, n).astype(float),
+                       np.ones(m), np.full(m, INF))
+    return model
+
+
+def mcf_lp(nn: int, na: int, seed: int, cap: float = 30.0, supply: int = 5):
+    """Random connected min-cost flow (na random arcs plus a ring of nn),
+    the LP of tests/test_network.py:make_mcf from the same random draws,
+    built sparse."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import Model
+
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for j in range(na):
+        t, h = rng.choice(nn, 2, replace=False)
+        rows += [h, t]
+        cols += [j, j]
+        vals += [1.0, -1.0]
+    for i in range(nn):
+        rows += [(i + 1) % nn, i]
+        cols += [na + i, na + i]
+        vals += [1.0, -1.0]
+    natot = na + nn
+    A = sp.csc_matrix((vals, (rows, cols)), shape=(nn, natot))
+    cost = rng.integers(1, 9, natot).astype(float)
+    b = rng.integers(-supply, supply + 1, nn).astype(float)
+    b[-1] = -b[:-1].sum()
+    model = Model()
+    model.load_problem(A, np.zeros(natot), np.full(natot, cap), cost, b.copy(), b.copy())
+    return model
+
+
+def gub_lp(K: int, per: int, mg: int, seed: int):
+    """K disjoint GUB rows over `per` columns each plus mg general rows, the
+    LP of tests/test_gub.py:make_gub_lp (its default shape arguments)."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import INF, Model
+
+    rng = np.random.default_rng(seed)
+    n = K * per
+    Agen = sp.random(mg, n, density=0.3, random_state=rng.integers(1 << 30),
+                     data_rvs=lambda s: rng.normal(size=s)).tocsr()
+    gub = sp.csr_matrix((np.ones(n), (np.repeat(np.arange(K), per), np.arange(n))),
+                        shape=(K, n))
+    A = sp.vstack([Agen, gub]).tocsc()
+    kind = rng.random(K)
+    eq_frac, onesided = 0.3, 0.0
+    grl = np.where(kind < eq_frac, 1.0, np.where(kind < eq_frac + onesided, -INF, 0.2))
+    gru = np.where((kind >= eq_frac + onesided) & (kind < eq_frac + 2 * onesided), INF, 1.0)
+    gru = np.maximum(gru, grl)
+    rl = np.concatenate([rng.normal(size=mg) - 2.0, grl])
+    ru = np.concatenate([rng.normal(size=mg) + 4.0, gru])
+    model = Model()
+    model.load_problem(A, np.zeros(n), np.full(n, 2.0), rng.normal(size=n), rl, ru)
+    return model
+
+
+def sparse_feasible_lp(m: int, n: int, nnz: int, seed: int = 0, slack: float = 0.5):
+    """Random sparse rows <= b + slack around a known point, the LP of
+    tests/test_bigsolve.py:_sparse_feasible_lp."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import Model
+
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, m, nnz)
+    cols = rng.integers(0, n, nnz)
+    A = sp.csc_matrix((rng.normal(size=nnz), (rows, cols)), shape=(m, n))
+    A.sum_duplicates()
+    b = A @ rng.uniform(0, 2, n)
+    model = Model()
+    model.load_problem(A, np.zeros(n), np.full(n, 10.0), rng.normal(size=n),
+                       np.full(m, -1e30), b + slack)
+    return model
+
+
+def auto_models():
+    """The AUTOMATIC phase's six LPs: (label, model factory, the route
+    expected, HiGHS by its IPM?). On the sparse LP HiGHS's dual simplex
+    takes far longer than its IPM with crossover (PERF.md §5)."""
+    from clp_tpu_torch.utils.generators import random_lp
+
+    return [
+        ("covering 1024x6144", lambda: covering_lp(1024, 6144), "idiot-warm DUAL_SIMPLEX",
+         False),
+        # the wide and the tall LP cut from 1024 x 16384 and 12288 x 1536,
+        # keeping their aspect and density: their SPRINT sub-solves (the
+        # tall LP's through its dual) ran far past the phase's time
+        # (PERF.md §4)
+        ("wide 192x3072", lambda: random_lp(192, 3072, density=0.01, seed=1), "SPRINT", False),
+        ("tall 3072x384", lambda: random_lp(3072, 384, density=0.01, equality_frac=0.0,
+                                            seed=2), "dualize", False),
+        ("network 2000 nodes", lambda: mcf_lp(2000, 16000, seed=0), "NETWORK", False),
+        # K cut from 2000 to 500 to fit the phase's time: the GUB simplex
+        # runs on the host, one Python pivot at a time (PERF.md §4)
+        ("GUB K=500", lambda: gub_lp(500, 8, 64, 7), "GUB", False),
+        ("sparse 10240x20480", lambda: sparse_feasible_lp(10240, 20480, 163840, seed=0),
+         "PDLP", True),
+    ]
+
+
+class RouteSpy:
+    """Records which of the port's route functions a solve entered, and the
+    simplex sub-solves each ran, by wrapping the module attributes that
+    `initial_solve` looks up at call time; `close` restores them."""
+
+    TARGETS = [("crash", "idiot_crash"), ("crash", "_idiot_descend"),
+               ("sprint", "sprint_solve"), ("network", "solve_network"),
+               ("gub", "solve_gub"), ("pdlp", "pdlp_solve"),
+               ("bigsolve", "crunch_polish"), ("analysis", "dualize"),
+               ("simplex.driver", "simplex_solve")]
+
+    def __init__(self):
+        import importlib
+
+        self.saved = []
+        self.calls: list[tuple] = []
+        self.active: list[str] = []
+        for mod_name, fn_name in self.TARGETS:
+            mod = importlib.import_module(f"clp_tpu_torch.{mod_name}")
+            fn = getattr(mod, fn_name)
+            self.saved.append((mod, fn_name, fn))
+            setattr(mod, fn_name, self._wrap(fn_name, fn))
+
+    def _wrap(self, name, fn):
+        def spy(*args, **kw):
+            self.calls.append((name, tuple(self.active), args, kw))
+            self.active.append(name)
+            try:
+                out = fn(*args, **kw)
+            finally:
+                self.active.pop()
+            self.calls[-1] = self.calls[-1] + (out,)
+            return out
+        return spy
+
+    def entered(self, name) -> list:
+        return [c for c in self.calls if c[0] == name]
+
+    def sub_solves(self, inside) -> int:
+        return sum(1 for c in self.calls if c[0] == "simplex_solve" and inside in c[1])
+
+    def close(self):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def route_summary(spy: RouteSpy, sol) -> tuple[str, str]:
+    """(route, its iteration counts) from what the spy saw; a dualized LP
+    names the route its dual took."""
+    counts = route_counts(spy, sol)
+    if spy.entered("dualize"):
+        return "dualize", f"the dual's route {_route_name(spy)}, {counts}"
+    return _route_name(spy), counts
+
+
+def _route_name(spy: RouteSpy) -> str:
+    for name, label in (("pdlp_solve", "PDLP"), ("sprint_solve", "SPRINT"),
+                        ("solve_network", "NETWORK"), ("solve_gub", "GUB"),
+                        ("idiot_crash", "idiot-warm DUAL_SIMPLEX")):
+        if spy.entered(name):
+            return label
+    return "simplex"
+
+
+def route_counts(spy: RouteSpy, sol) -> str:
+    parts = []
+    for c in spy.entered("_idiot_descend"):
+        parts.append(f"idiot majors={c[2][8]}")
+    if spy.entered("sprint_solve"):
+        parts.append(f"sprint passes={spy.sub_solves('sprint_solve')}")
+    for name, what in (("solve_network", "network pivots"), ("solve_gub", "GUB pivots"),
+                       ("pdlp_solve", "PDHG iterations")):
+        for c in spy.entered(name):
+            parts.append(f"{what}={c[-1].iterations}")
+    if spy.entered("crunch_polish"):
+        done = spy.entered("crunch_polish")[-1][-1] is not None
+        first = next(c[2][0] for c in spy.calls
+                     if c[0] == "simplex_solve" and "crunch_polish" in c[1])
+        parts.append(f"polish passes={spy.sub_solves('crunch_polish')}"
+                     f"{'' if done else ' (declined)'} (first sub-LP "
+                     f"{first.num_rows} x {first.num_cols})")
+    parts.append(f"simplex sub-solves={len(spy.entered('simplex_solve'))}, "
+                 f"iterations={sol.iterations}")
+    return ", ".join(parts)
+
+
+def auto_path(dev, label, make, expect, highs_ipm) -> dict:
+    """One LP through `initial_solve` with the default AUTOMATIC on the
+    card, with the launch counts of exactly this run; checked for the route,
+    status, KKT at 1e-6 and the objective against HiGHS."""
+    from clp_tpu_torch import SolveOptions, check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus
+    from clp_tpu_torch.ops.pivot import fused_pivot_update
+    from clp_tpu_torch.ops.price import price_and_ratios, price_and_ratios_block
+
+    model = make()
+    shape = (model.num_rows, model.num_cols, model.num_elements)
+    spy = RouteSpy()
+    try:
+        price_and_ratios.launches = 0
+        fused_pivot_update.launches = 0
+        price_and_ratios_block.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = initial_solve(model, SolveOptions(device=dev.type))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": price_and_ratios.launches, "K2": fused_pivot_update.launches,
+                    "K3": price_and_ratios_block.launches}
+    finally:
+        spy.close()
+    route, counts = route_summary(spy, sol)
+    if route != expect:
+        raise AssertionError(f"auto [{label}]: AUTOMATIC took {route}, expected {expect}")
+    if expect == "PDLP" and not spy.entered("crunch_polish"):
+        raise AssertionError(f"auto [{label}]: the PDLP route did not run crunch_polish")
+    if sol.status != ProblemStatus.OPTIMAL:
+        raise AssertionError(f"auto [{label}]: status {sol.status!r}, expected OPTIMAL")
+    rep = check_kkt(model, x=sol.primal, y=sol.duals, tol=1e-6)
+    if not rep.ok:
+        raise AssertionError(f"auto [{label}]: KKT check at 1e-6 failed: {rep}")
+    if launches["K2"] or launches["K3"]:
+        raise AssertionError(f"auto [{label}]: K2 or K3 launched: {launches}")
+    t0 = time.perf_counter()
+    ref = highs_objective(model, ipm=highs_ipm)
+    highs_s = time.perf_counter() - t0
+    if not abs(sol.objective_value - ref) <= 1e-6 * (1 + abs(ref)):
+        raise AssertionError(f"auto [{label}]: objective {sol.objective_value!r} "
+                             f"vs HiGHS {ref!r}")
+    print(f"auto path [{label}: {shape[0]} x {shape[1]}, {shape[2]} nonzeros]: {route} "
+          f"as expected; OPTIMAL obj={sol.objective_value!r} (HiGHS {ref!r}, "
+          f"{highs_s:.2f} s), KKT ok at 1e-6; {counts}; solve wall={wall:.3f} s, "
+          f"K1 launches={launches['K1']}, "
+          f"phases={ {k: round(v, 3) for k, v in sol.timings.items() if isinstance(v, float)} }",
+          flush=True)
+    return {"label": label, "route": route, "wall": wall, "launches": launches}
+
+
+def auto_phase(dev) -> list:
+    """Each AUTOMATIC destination but DECOMPOSE, driven through the default
+    `initial_solve` on the card; K1 must launch inside the phase's simplex
+    sub-solves."""
+    runs = [auto_path(dev, *spec) for spec in auto_models()]
+    if sum(r["launches"]["K1"] for r in runs) <= 0:
+        raise AssertionError("auto phase: K1 never launched in its simplex sub-solves")
+    return runs
+
+
 def profile_pivots(dev, route: str, pivots: int = 200) -> None:
     """Where a pivot's time goes on the card.
 
@@ -811,6 +1156,7 @@ def main() -> int:
     G32 = staircase_g32(dev)
     k1 = check_k1(dev, flush, G32)
     k2 = check_k2(dev, flush, G32)
+    k2["above_limit"] = [check_k2_above_limit(dev, flush, m) for m in (14465, 16384)]
     k3 = check_k3(dev, flush, *staircase_blocks(dev, G32))
     del flush, G32
 
@@ -829,6 +1175,8 @@ def main() -> int:
     print(f"HiGHS objective {highs_obj!r}: all three main-path runs agree within "
           f"1e-6 * (1 + |obj|)", flush=True)
     barrier_phase(dev)
+    auto_runs = auto_phase(dev)
+    k1["auto_phase_launches"] = sum(r["launches"]["K1"] for r in auto_runs)
     # each in a process of its own: torch.profiler leaves state behind that
     # slows the host side of its process, and the same pivots ran slower
     # after the solves above than in a fresh process
@@ -837,8 +1185,9 @@ def main() -> int:
                        check=True, timeout=600)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    extra = ("launch_floor_ms", "above_limit", "auto_phase_launches")
     print(json.dumps({"kernels": [
-        {k: rec[k] for k in keys} | {k: v for k, v in rec.items() if k == "launch_floor_ms"}
+        {k: rec[k] for k in keys} | {k: v for k, v in rec.items() if k in extra}
         for rec in (k1, k2, k3)]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 The JAX package's `StandardLP`, `SimplexState` and `IPMResult` are
 pytrees of arrays; their fields, as numpy arrays in a `{name: array}` dict,
 go through `*_from_numpy` to the port's dataclasses on a chosen device, and
-back through `*_to_numpy`. `FormInfo` (host bookkeeping of a form) carries
-the same way. The tests hand one mid-solve state or one IPM form to both
-packages this way, and compare what comes out.
+back through `*_to_numpy`. `FormInfo` (host bookkeeping of a form) and the
+PDHG's ELL matrix carry the same way. The tests hand one mid-solve state,
+one IPM form or one ELL matrix to both packages this way, and compare what
+comes out.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from .forms import FormInfo, StandardLP
 from .interior.mehrotra import IPMResult
+from .pdlp import EllMatrix
 from .simplex.engine import SimplexState
 
 # dtypes the port keeps per SimplexState field where JAX's differ
@@ -82,3 +84,11 @@ def ipm_result_from_numpy(fields: dict, device) -> IPMResult:
 def ipm_result_to_numpy(res: IPMResult) -> dict:
     return {f.name: getattr(res, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(res)}
+
+
+def ell_from_numpy(fields: dict, device) -> EllMatrix:
+    """The four ELL fields (val, idx, valT, idxT) to the port's EllMatrix:
+    values f64, indices int64, as torch indexes."""
+    return EllMatrix(*(_tensor(fields[k], device, torch.float64 if k.startswith("val")
+                                else torch.int64)
+                       for k in ("val", "idx", "valT", "idxT")))

@@ -21,6 +21,15 @@
 // held on chip, so binv is never read twice. binv_out is a separate buffer:
 // the update is out of place, so no block can see another block's writes,
 // and rho must not alias binv in any case (the caller passes a copy).
+//
+// Above m = 14,464, K2_ROWS rows of binv no longer fit in the 227 KB of
+// shared memory a block may use, and k2_pivot_two_pass computes the same function in two launches:
+// rowdot_kernel streams each row once and writes R (the same per-block dot
+// products and fixed-order reduction as pivot_kernel), then update_kernel
+// streams binv again, one row a block, and writes binv' = row - gate *
+// factor * rho (16-byte loads and stores where m and the pointers allow).
+// binv is read twice there, 3 * 4 m^2 bytes against the one-pass 2 * 4 m^2;
+// no atomics, so two launches give the same bits.
 
 #include <cuda_runtime.h>
 
@@ -83,6 +92,90 @@ pivot_kernel(const float* __restrict__ binv, const float* __restrict__ triple,
     for (int k = threadIdx.x; k < m; k += K2_THREADS) dst[k] = row[k] - gf * rho[k];
   }
   if (threadIdx.x < nrows * 3) res[(size_t)i0 * 3 + threadIdx.x] = sums[threadIdx.x];
+}
+
+// pass one of the wide path: R = binv @ triple for K2_ROWS rows a block
+__global__ void __launch_bounds__(K2_THREADS)
+rowdot_kernel(const float* __restrict__ binv, const float* __restrict__ triple,
+              int m, float* __restrict__ res) {
+  __shared__ float red[K2_THREADS / 32][K2_ACC];
+  const int i0 = blockIdx.x * K2_ROWS;
+  const int nrows = min(K2_ROWS, m - i0);
+  float acc[K2_ACC];
+#pragma unroll
+  for (int t = 0; t < K2_ACC; ++t) acc[t] = 0.0f;
+  for (int k = threadIdx.x; k < m; k += K2_THREADS) {
+    const float t0 = triple[3 * k];
+    const float t1 = triple[3 * k + 1];
+    const float t2 = triple[3 * k + 2];
+#pragma unroll
+    for (int rr = 0; rr < K2_ROWS; ++rr) {
+      if (rr < nrows) {
+        const float b = __ldcs(binv + (size_t)(i0 + rr) * m + k);
+        acc[3 * rr] = fmaf(b, t0, acc[3 * rr]);
+        acc[3 * rr + 1] = fmaf(b, t1, acc[3 * rr + 1]);
+        acc[3 * rr + 2] = fmaf(b, t2, acc[3 * rr + 2]);
+      }
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < K2_ACC; ++t) {
+    float v = acc[t];
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][t] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < nrows * 3) {
+    float s = 0.0f;
+    for (int w = 0; w < K2_THREADS / 32; ++w) s += red[w][threadIdx.x];
+    res[(size_t)i0 * 3 + threadIdx.x] = s;
+  }
+}
+
+// pass two of the wide path: binv' = binv - gate * factor (x) rho, a row a block
+template <bool VEC>
+__global__ void __launch_bounds__(K2_THREADS)
+update_kernel(const float* __restrict__ binv, const float* __restrict__ rho,
+              const float* __restrict__ scal, const int* __restrict__ r_p, int m,
+              const float* __restrict__ res, float* __restrict__ binv_out) {
+  const int i = blockIdx.x;
+  const float inv_abar_r = scal[0];
+  const float gate = scal[1];
+  const float factor = (i == *r_p) ? 1.0f - inv_abar_r : res[(size_t)i * 3] * inv_abar_r;
+  const float gf = gate * factor;
+  const float* row = binv + (size_t)i * m;
+  float* dst = binv_out + (size_t)i * m;
+  if (VEC) {
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    const float4* rho4 = reinterpret_cast<const float4*>(rho);
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int k = threadIdx.x; k < m / 4; k += K2_THREADS) {
+      const float4 b = __ldcs(row4 + k);
+      const float4 p = rho4[k];
+      __stcs(dst4 + k, make_float4(b.x - gf * p.x, b.y - gf * p.y, b.z - gf * p.z,
+                                   b.w - gf * p.w));
+    }
+  } else {
+    for (int k = threadIdx.x; k < m; k += K2_THREADS) __stcs(dst + k, __ldcs(row + k) - gf * rho[k]);
+  }
+}
+
+extern "C" int k2_pivot_two_pass(const float* binv, const float* triple, const float* rho,
+                                 const float* scal, const int* r, int m, float* binv_out,
+                                 float* res, cudaStream_t stream) {
+  if (m <= 0) return 0;
+  rowdot_kernel<<<(m + K2_ROWS - 1) / K2_ROWS, K2_THREADS, 0, stream>>>(binv, triple, m, res);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = m % 4 == 0 && ((size_t)binv | (size_t)rho | (size_t)binv_out) % 16 == 0;
+  if (vec) {
+    update_kernel<true><<<m, K2_THREADS, 0, stream>>>(binv, rho, scal, r, m, res, binv_out);
+  } else {
+    update_kernel<false><<<m, K2_THREADS, 0, stream>>>(binv, rho, scal, r, m, res, binv_out);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int k2_pivot(const float* binv, const float* triple, const float* rho,

@@ -9,7 +9,10 @@ Both dtypes go through `torch.linalg.lu_factor_ex` / `lu_solve` on any
 device. `lu_factor_ex` is `lu_factor` without the error check: a singular
 basis must come back as a non-finite inverse (the `ok` flag), as XLA's LU
 does, not as an exception — and on the card the check would sync every
-refactorization.
+refactorization. The JAX package's own LU and inverses (`blocked_lu`,
+`blocked_inverse`, `gauss_jordan_inverse`) stand in for an f64 LU that
+the TPU lacks; they are here in plain torch for the same public names,
+and no path of the port calls them.
 
 The Cholesky half serves the barrier: `chol_factor_reg` (Cholesky with an
 escalating diagonal shift), `chol_blocked`, `chol_solve`, `solve_refined`,
@@ -33,12 +36,14 @@ def _inverse_from_lu(B: torch.Tensor) -> torch.Tensor:
     return torch.linalg.lu_solve(LU, piv, eye).contiguous()
 
 
-def lu_refactor(B: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def lu_refactor(B: torch.Tensor, block: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense factorization of a basis matrix, returning (Binv, ok_flag).
 
     The periodic from-scratch refactorization (reference cadence:
     ClpFactorization::timeToRefactorize, ClpFactorization.cpp:1524).
-    `ok` is a 0-dim bool tensor on B's device.
+    `ok` is a 0-dim bool tensor on B's device. `block` is the JAX
+    package's panel width for its TPU LU; `lu_factor_ex` needs none, and
+    it is unused.
     """
     Binv = _inverse_from_lu(B)
     return Binv, torch.isfinite(Binv).all()
@@ -64,6 +69,81 @@ def lu_refactor32(B: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     X = (X * dc.reshape(-1, 1).to(torch.float32)
          * dr.reshape(1, -1).to(torch.float32)).contiguous()
     return X, torch.isfinite(X).all()
+
+
+def gauss_jordan_inverse(B: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse via Gauss-Jordan with partial pivoting: m rank-1
+    row-operation steps on [B | I] (the JAX package's fori_loop)."""
+    m = B.shape[-1]
+    aug = torch.cat([B, torch.eye(m, dtype=B.dtype, device=B.device)], dim=-1)
+    idx = torch.arange(m, device=B.device)
+    for k in range(m):
+        col = aug[:, k]
+        p = torch.argmax(torch.where(idx >= k, col.abs(), -torch.inf))
+        # swap rows k and p
+        perm = idx.clone()
+        perm[k], perm[p] = p, k
+        aug = aug[perm]
+        newk = aug[k] / aug[k, k]
+        factors = aug[:, k].clone()
+        factors[k] = 0.0
+        aug = aug - torch.outer(factors, newk)
+        aug[k] = newk
+    return aug[:, m:]
+
+
+def blocked_lu(A: torch.Tensor, block: int = 128):
+    """Right-looking blocked LU with partial pivoting (LAPACK getrf's
+    structure): b sequential panel steps, then a unit-lower triangular solve
+    for the block row and one product for the trailing update per panel.
+    The JAX package's TPU LU, in plain torch.
+
+    Returns (LU, perm) where LU packs unit-lower L below the diagonal and U
+    on/above it, and perm is the row permutation such that A[perm] = L @ U.
+    """
+    m = A.shape[-1]
+    b = min(block, m)
+    nb = -(-m // b)  # ceil
+    M = nb * b
+    # pad with identity so every panel has width b
+    Ap = torch.eye(M, dtype=A.dtype, device=A.device)
+    Ap[:m, :m] = A
+    A = Ap
+    rows = torch.arange(M, device=A.device)
+    perm = rows.clone()
+    for k in range(nb):
+        pb = k * b
+        for j in range(b):
+            r = pb + j
+            # partial pivot among rows >= r
+            p = int(torch.argmax(torch.where(rows >= r, A[:, r].abs(), -torch.inf)))
+            A[[r, p]] = A[[p, r]]
+            perm[[r, p]] = perm[[p, r]]
+            # multipliers below the diagonal, stored in place
+            A[r + 1:, r] /= A[r, r]
+            # eliminate within the remaining panel columns only
+            A[r + 1:, r + 1:pb + b] -= torch.outer(A[r + 1:, r], A[r, r + 1:pb + b])
+        # block row: U12 = L11^{-1} A12 (unit-lower L11)
+        L11 = torch.tril(A[pb:pb + b, pb:pb + b], -1) + torch.eye(
+            b, dtype=A.dtype, device=A.device)
+        A[pb:pb + b, pb + b:] = torch.linalg.solve_triangular(
+            L11, A[pb:pb + b, pb + b:], upper=False, unitriangular=True)
+        # trailing update: A22 -= L21 @ U12
+        A[pb + b:, pb + b:] -= A[pb + b:, pb:pb + b] @ A[pb:pb + b, pb + b:]
+    return A[:m, :m], perm[:m]
+
+
+def blocked_inverse(B: torch.Tensor, block: int = 128) -> torch.Tensor:
+    """Explicit inverse via blocked LU + two triangular solves:
+    B^{-1} = U^{-1} L^{-1} P."""
+    m = B.shape[-1]
+    LU, perm = blocked_lu(B, block)
+    eye = torch.eye(m, dtype=B.dtype, device=B.device)
+    L = torch.tril(LU, -1) + eye
+    U = torch.triu(LU)
+    Pm = eye[perm]
+    Y = torch.linalg.solve_triangular(L, Pm, upper=False, unitriangular=True)
+    return torch.linalg.solve_triangular(U, Y, upper=True)
 
 
 # --------------------------------------------------------------------------

@@ -18,7 +18,10 @@ on the device: they come out of device argmaxes, and handing them to the
 kernel as host numbers would sync every pivot.
 
 The update is out of place (binv' is a new buffer), as in the JAX
-function; rho must be a copy of row r, not a view of binv.
+function; rho must be a copy of row r, not a view of binv. Above
+`_K2_MAX_M` rows the one-pass kernel's rows no longer fit in shared
+memory, and the wrapper launches the library's two-pass path instead
+(the same function, binv read twice); the choice is made by m alone.
 """
 
 from __future__ import annotations
@@ -47,8 +50,9 @@ def fused_pivot_update_reference(binv, triple, rho, abar_r, gate, r):
     return binv_new, R
 
 
-def _k2():
-    fn = build.load("pivot").k2_pivot
+def _k2(m: int):
+    lib = build.load("pivot")
+    fn = lib.k2_pivot if m <= _K2_MAX_M else lib.k2_pivot_two_pass
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                                                ctypes.c_void_p, ctypes.c_void_p]
@@ -81,9 +85,6 @@ def fused_pivot_update(binv, triple, rho, abar_r, gate, r):
         return fused_pivot_update_reference(binv, triple, rho, abar_r, gate, r)
     if dev.type != "cuda":
         raise ValueError(f"fused_pivot_update: unsupported device {dev}")
-    if m > _K2_MAX_M:
-        raise ValueError(f"K2 holds {_K2_ROWS} rows of binv in shared memory: "
-                         f"m = {m} exceeds its limit {_K2_MAX_M}")
     scal = torch.stack([1.0 / abar_r.reshape(()), gate.reshape(())])
     r32 = r.to(torch.int32).reshape(1)
     triple = triple.contiguous()
@@ -95,11 +96,12 @@ def fused_pivot_update(binv, triple, rho, abar_r, gate, r):
 
 
 def _launch(binv, triple, rho, scal, r32, binv_new, res):
-    """Launch K2 on prepared contiguous CUDA tensors (f32; r32 int32)."""
+    """Launch K2 on prepared contiguous CUDA tensors (f32; r32 int32):
+    the one-pass kernel up to `_K2_MAX_M` rows, the two-pass path above."""
     m = binv.shape[0]
-    rc = _k2()(binv.data_ptr(), triple.data_ptr(), rho.data_ptr(),
-               scal.data_ptr(), r32.data_ptr(), m, binv_new.data_ptr(),
-               res.data_ptr(), torch.cuda.current_stream(binv.device).cuda_stream)
+    rc = _k2(m)(binv.data_ptr(), triple.data_ptr(), rho.data_ptr(),
+                scal.data_ptr(), r32.data_ptr(), m, binv_new.data_ptr(),
+                res.data_ptr(), torch.cuda.current_stream(binv.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K2 pivot kernel launch failed: CUDA error {rc}")
     fused_pivot_update.launches += 1

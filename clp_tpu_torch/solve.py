@@ -8,9 +8,12 @@ Mirrors the reference's dispatcher flow (ClpSolve.cpp:845-4070):
   5. postsolve + cleanup solve if residual infeasibilities remain
   6. final status, timing
 
-The port runs DUAL_SIMPLEX, PRIMAL_SIMPLEX, BARRIER, BARRIER_NO_CROSS and
-AUTOMATIC where it lands on one of those. Every other route raises
-NotImplementedError naming its ROADMAP.md item.
+The port runs DUAL_SIMPLEX, PRIMAL_SIMPLEX (with the idiot or triangular
+crash start), PRIMAL_IDIOT, BARRIER, BARRIER_NO_CROSS, SPRINT, PDLP (with
+its simplex polish), NETWORK, GUB and the dualize of tall LPs, and
+AUTOMATIC wherever it lands but DECOMPOSE. DECOMPOSE and every other route
+the port lacks (piecewise costs, a quadratic objective, a device mesh)
+raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -30,11 +33,7 @@ from .options import SolveOptions
 
 # what the JAX package runs for each AUTOMATIC choice the port lacks
 _AUTO_UNPORTED = {
-    SolveMethod.NETWORK: "network.py",
-    SolveMethod.GUB: "gub.py",
     SolveMethod.DECOMPOSE: "structure.py, decompose.py",
-    SolveMethod.SPRINT: "sprint.py",
-    SolveMethod.PDLP: "pdlp.py",
 }
 
 
@@ -95,8 +94,7 @@ def _auto_idiot(model: Model) -> bool:
       * element structure (:1530-1568, :1684 ``numberElements <= 3 *
         numberColumns``): mostly-unit entries OR very sparse columns.
 
-    As in the JAX package, the idiot point feeds the DUAL's values pass
-    (the idiot crash itself is not ported yet).
+    As in the JAX package, the idiot point feeds the DUAL's values pass.
     """
     m, n = model.num_rows, model.num_cols
     # tryIt gate, with the JAX package's measured upper width cap (beyond
@@ -405,6 +403,50 @@ def _solve_simplex(model: Model, options: SolveOptions, dual: bool,
     return simplex_solve(model, options, dual=dual, warm=warm)
 
 
+def _solve_pdlp(work: Model, options: SolveOptions) -> Solution:
+    """PDHG, then its polish to simplex accuracy, or the simplex's verdict
+    where PDHG stops short."""
+    from .pdlp import pdlp_solve
+
+    sol = pdlp_solve(work, options)
+    m, n = work.num_rows, work.num_cols
+    dense_fits = 4 * m * (m + n) <= 4 << 30
+    # first-order solutions are moderate-accuracy by design (they carry
+    # SecondaryStatus.REDUCED_ACCURACY); polish to simplex accuracy:
+    #   * dense-engine scale: values-pass dual solve on the whole LP
+    #   * beyond that: crunch_polish — row+column working-set finish
+    #     against the full sparse data (bigsolve.py)
+    if options.crossover and sol.status == ProblemStatus.OPTIMAL:
+        polished = None
+        if m >= 2048 or not dense_fits:
+            # the working-set finish is strictly cheaper than a full
+            # dense values pass at scale; try it first
+            from .bigsolve import crunch_polish
+
+            polished = crunch_polish(work, options, sol)
+            if polished is not None:
+                sol = polished
+        if polished is None and dense_fits:
+            polish = _solve_simplex(
+                work, options, dual=True,
+                warm=Solution(primal=sol.primal.copy(),
+                              row_activity=None if sol.row_activity is None
+                              else np.asarray(sol.row_activity).copy()),
+            )
+            if polish.status == ProblemStatus.OPTIMAL:
+                sol = polish
+    if (sol.status == ProblemStatus.STOPPED
+            and sol.secondary_status == SecondaryStatus.FAILED_TO_CONVERGE
+            and dense_fits):
+        # PDHG cannot certify infeasible/unbounded: adjudicate the
+        # status with the simplex when the dense engine fits
+        adj = _solve_simplex(work, options, dual=True)
+        if adj.status in (ProblemStatus.OPTIMAL, ProblemStatus.PRIMAL_INFEASIBLE,
+                          ProblemStatus.DUAL_INFEASIBLE):
+            sol = adj
+    return sol
+
+
 def _fire(model: Model, which, **info) -> bool:
     """Fire an event hook; True means the handler requested an abort
     (reference: event handler return >= 0 -> status 5, ClpModel.hpp:435)."""
@@ -466,12 +508,21 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
 
     if getattr(model, "piecewise_costs", None):
         raise _not_ported("piecewise-linear costs", "the other solvers (piecewise.py)")
+    # --- dualize: solve the transposed model and map back (reference:
+    # ClpSimplexOther::dualOfModel/restoreFromDual, ClpSimplexOther.cpp:1681).
+    # Auto: very tall LPs transpose to wide ones the engines handle better
+    # (per-pivot work scales with the row count; reference tryDualize hint)
     if options.dualize or (
         options.method == SolveMethod.AUTOMATIC
         and model.num_rows > 6 * model.num_cols
         and model.num_rows > 2000
     ):
-        raise _not_ported("dualize", "analysis/API/CLI (analysis.dualize)")
+        from .analysis import dualize, restore_from_dual
+
+        dm, mapping = dualize(model)
+        initial_solve(dm, dataclasses.replace(options, dualize=0))
+        restore_from_dual(model, dm, mapping)
+        return model.solution
     if model.quadratic_objective is not None:
         raise _not_ported("a quadratic objective", "solve-level QP")
 
@@ -561,10 +612,9 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
                   if method in (SolveMethod.PRIMAL_SIMPLEX,
                                 SolveMethod.PRIMAL_IDIOT)
                   else SolveMethod.DUAL_SIMPLEX)
-    elif method not in (SolveMethod.DUAL_SIMPLEX, SolveMethod.PRIMAL_SIMPLEX,
-                        SolveMethod.BARRIER, SolveMethod.BARRIER_NO_CROSS,
-                        SolveMethod.AUTOMATIC):
-        raise _not_ported(f"method {method.name}", "the other solvers")
+    elif method in _AUTO_UNPORTED:
+        raise _not_ported(f"method {method.name}",
+                          f"AUTOMATIC destinations ({_AUTO_UNPORTED[method]})")
 
     # --- presolve ---
     presolved = None
@@ -624,18 +674,13 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
         if method in _AUTO_UNPORTED:
             raise _not_ported(f"AUTOMATIC's choice {method.name}",
                               f"AUTOMATIC destinations ({_AUTO_UNPORTED[method]})")
-    if (method in (SolveMethod.DUAL_SIMPLEX, SolveMethod.PRIMAL_SIMPLEX)
-            and pending_warm is None):
-        crash = "idiot" if auto_idiot_dual else options.crash
-        if crash in ("idiot", "triangular"):
-            raise _not_ported(f"the {crash} crash start",
-                              "AUTOMATIC destinations (crash.py)" if auto_idiot_dual
-                              else "the other solvers (crash.py)")
 
     t_phase = time.time()
     # --- scaling (reference: ClpModel::scaling modes, applied pre-solve) ---
     factors = None
-    if options.scaling != ScalingMode.OFF and work.num_cols and work.num_rows:
+    if (options.scaling != ScalingMode.OFF and work.num_cols and work.num_rows
+            # scaling destroys +-1 / unit-coefficient structure
+            and method not in (SolveMethod.NETWORK, SolveMethod.GUB)):
         from .scaling import compute_scaling, scale_model_arrays
 
         factors = compute_scaling(work.matrix, options.scaling)
@@ -682,9 +727,50 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
             ):
                 sol = adj
         sol.timings = {**ipm_stats, **(sol.timings or {})}
+    elif method in (SolveMethod.DUAL_SIMPLEX, SolveMethod.PRIMAL_SIMPLEX,
+                    SolveMethod.PRIMAL_IDIOT):
+        dual = method == SolveMethod.DUAL_SIMPLEX
+        warm = pending_warm
+        # the idiot point feeds the values pass (the auto idiot dual,
+        # PRIMAL_IDIOT, or crash="idiot"); the triangular crash a basis
+        if warm is None and (auto_idiot_dual or method == SolveMethod.PRIMAL_IDIOT
+                             or options.crash == "idiot"):
+            from .crash import idiot_crash
+
+            warm = idiot_crash(work, options)
+        elif warm is None and options.crash == "triangular":
+            from .crash import triangular_crash
+
+            warm = triangular_crash(work, options)
+        sol = _solve_simplex(work, options, dual=dual, warm=warm)
+    elif method == SolveMethod.SPRINT:
+        from .sprint import sprint_solve
+
+        sol = sprint_solve(work, options, max_passes=options.sprint_passes)
+    elif method == SolveMethod.PDLP:
+        sol = _solve_pdlp(work, options)
+    elif method == SolveMethod.NETWORK:
+        from .network import network_form, solve_network
+
+        if network_form(work) is not None:
+            sol = solve_network(work, options)
+        else:
+            # presolve/user edits broke the +-1 structure: general dual path
+            sol = _solve_simplex(work, options, dual=True)
+    elif method == SolveMethod.GUB:
+        from .gub import solve_gub
+
+        try:
+            sol = solve_gub(work, options)
+        except ValueError:
+            sol = None  # no GUB rows / unverifiable claim: dense path
+        # ERRORS falls back to the dense engine; STOPPED does NOT — it
+        # means a user limit was hit, and a from-scratch dense re-solve
+        # would double the spent budget
+        if sol is None or sol.status == ProblemStatus.ERRORS:
+            sol = _solve_simplex(work, options, dual=True)
     else:
-        sol = _solve_simplex(work, options, dual=method == SolveMethod.DUAL_SIMPLEX,
-                             warm=pending_warm)
+        raise NotImplementedError(f"method {method}")
 
     timings["solve"] = time.time() - t_phase
     t_phase = time.time()

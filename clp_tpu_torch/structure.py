@@ -16,8 +16,8 @@ the linking columns:
 Detection is a connected-components pass over the sparsity pattern after
 removing the highest-degree columns at a few trial thresholds — O(nnz)
 per trial, run only from the AUTOMATIC method chooser. The decomposition
-solve the detection routes to is not ported yet (ROADMAP.md queue 1: the
-other solvers).
+solve the detection routes to is not ported yet (ROADMAP.md queue 1:
+AUTOMATIC destinations, DECOMPOSE).
 """
 
 from __future__ import annotations

@@ -1,12 +1,15 @@
 """Port parity for the AUTOMATIC method choice: `_auto_method`, `_auto_idiot`
 and the GUB and two-stage detection it reads return what the JAX package's
-do on the same LPs; where the choice lands on a route the port has not
-ported, `initial_solve` raises NotImplementedError naming its ROADMAP item."""
+do on the same LPs; `initial_solve` then gives the JAX package's status and
+objective on each destination the port has (NETWORK, GUB, SPRINT, the
+idiot-warm dual, the dualize of a tall LP), and on DECOMPOSE, which it
+lacks, raises NotImplementedError naming its ROADMAP item."""
 
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
+from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.gub import detect_gub as jax_detect_gub
@@ -23,6 +26,14 @@ from tests.test_gub import make_gub_lp
 from tests.test_network import make_mcf
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """numpy's OpenBLAS runs a spinning thread per core: beside five other
+    workers it starves the JAX package's host-timing tests."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def _port_model(mj):
@@ -70,12 +81,75 @@ def test_auto_method_matches_jax(name):
 
 @pytest.mark.parametrize("name", sorted(n for n, v in LPS.items() if v[2]))
 def test_unported_auto_destination_raises_naming_it(name):
+    """Each AUTOMATIC destination the JAX package routes to: the port gives
+    its status and objective (1e-9 relative), or, for DECOMPOSE, which it
+    has not ported, raises naming the module. (The name is from when every
+    case raised.)"""
     make, expect, item = LPS[name]
-    mt = _port_model(make())
+    mj = make()
+    mt = _port_model(mj)
     opts = clp_tpu_torch.SolveOptions(device="cpu")
     opts.presolve.enabled = False  # the choice is made on the LP as given
-    with pytest.raises(NotImplementedError, match=f"AUTOMATIC destinations.*{item}"):
-        clp_tpu_torch.initial_solve(mt, opts)
+    if expect == "DECOMPOSE":
+        with pytest.raises(NotImplementedError, match=f"AUTOMATIC destinations.*{item}"):
+            clp_tpu_torch.initial_solve(mt, opts)
+        return
+    oj = clp_tpu.SolveOptions()
+    oj.presolve.enabled = False
+    sj = clp_tpu.initial_solve(mj, oj)
+    st = clp_tpu_torch.initial_solve(mt, opts)
+    assert int(st.status) == int(sj.status) == int(clp_tpu.ProblemStatus.OPTIMAL)
+    assert abs(st.objective_value - sj.objective_value) <= 1e-9 * abs(sj.objective_value)
+
+
+@pytest.mark.parametrize("kw, shape", [
+    ({}, (2400, 300)),
+    ({"dualize": 1}, (30, 20)),
+], ids=["auto-tall", "explicit"])
+def test_dualize_matches_jax(kw, shape):
+    """A tall LP (m > 6n, m > 2000) goes through its dual under AUTOMATIC,
+    and any LP under dualize=1; the primal is restored from the dual's
+    solution. The same status and objective as the JAX package. Every row
+    is ranged (equality_frac=0): an equality row's dual is a free variable
+    split in two, both of which the sub-solves of the dual's SPRINT may park
+    at the 1e10 fake bound, and the restored duals then miss the KKT check
+    at 1e-6 in both packages."""
+    mj = jgen.random_lp(*shape, seed=0, density=0.01 if shape[0] > 2000 else 0.3,
+                        equality_frac=0.0)
+    mt = _port_model(mj)
+    sj = clp_tpu.initial_solve(mj, clp_tpu.SolveOptions(**kw))
+    st = clp_tpu_torch.initial_solve(mt, clp_tpu_torch.SolveOptions(device="cpu", **kw))
+    assert int(st.status) == int(sj.status) == int(clp_tpu.ProblemStatus.OPTIMAL)
+    assert abs(st.objective_value - sj.objective_value) <= 1e-9 * abs(sj.objective_value)
+    assert clp_tpu_torch.check_kkt(mt, x=st.primal, y=st.duals, tol=1e-6).ok
+
+
+def test_dualize_matches_jax_arrays():
+    """dualize and restore_from_dual are numpy copies: the same dual model
+    and mapping, and the same primal restored from one dual solution."""
+    from clp_tpu.analysis import dualize as jax_dualize, restore_from_dual as jax_restore
+
+    from clp_tpu_torch.analysis import dualize, restore_from_dual
+
+    mj = jgen.random_lp(12, 8, seed=4)
+    mj.col_upper = mj.col_upper.copy()
+    mj.col_upper[0] = mj.col_lower[0]  # a fixed column: both dual parts
+    mt = _port_model(mj)
+    dj, mapj = jax_dualize(mj)
+    dt, mapt = dualize(mt)
+    assert mapt == mapj
+    assert (dt.matrix != dj.matrix).nnz == 0
+    for f in ("objective", "col_lower", "col_upper", "row_lower", "row_upper"):
+        np.testing.assert_array_equal(getattr(dt, f), getattr(dj, f))
+    sol = clp_tpu.initial_solve(dj, clp_tpu.SolveOptions(method=clp_tpu.SolveMethod.DUAL_SIMPLEX))
+    dt.solution = clp_tpu_torch.Solution(status=clp_tpu_torch.ProblemStatus.OPTIMAL,
+                                         primal=sol.primal, duals=sol.duals,
+                                         iterations=sol.iterations)
+    jax_restore(mj, dj, mapj)
+    restore_from_dual(mt, dt, mapt)
+    np.testing.assert_array_equal(mt.solution.primal, mj.solution.primal)
+    np.testing.assert_array_equal(mt.solution.duals, mj.solution.duals)
+    assert mt.solution.objective_value == mj.solution.objective_value
 
 
 def test_card_branch_picks_the_dual_simplex_from_512_rows(monkeypatch):

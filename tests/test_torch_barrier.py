@@ -9,6 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.forms import to_ipm_form as jax_ipm_form
@@ -26,6 +27,14 @@ from clp_tpu_torch.solve import _rcm_band_plan
 from clp_tpu_torch.utils import generators as tgen
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """numpy's OpenBLAS runs a spinning thread per core: beside five other
+    workers it starves the JAX package's host-timing tests."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def _t(a):
@@ -309,3 +318,47 @@ def test_mixed32_stalls_on_the_random_bench_lp_like_jax():
     pj, pt = float(rj.primal_infeas), float(rt.primal_infeas)
     assert 1e-5 < pt < 1e-3 and 1e-5 < pj < 1e-3
     assert abs(np.log10(pt / pj)) < 0.5
+
+
+def test_f32_multifrontal_stalls_on_a_window_lp_like_jax():
+    """The IPM form of window_lp(512, 1024, 40, 3) (512 x 1536) on the device
+    multifrontal normal equations: in f32 (the card's setting) both packages
+    stall, not converged after 40 iterations with primal infeasibilities
+    near 1e-4 and within a decade of each other; in f64 both converge in the
+    same number of iterations to the same objective (1e-9 relative). The
+    port runs the device numeric on the CPU here (ROADMAP.md queue 4 item 7
+    asks which precision the card should take)."""
+    import scipy.sparse as sp
+
+    from clp_tpu.ops import sparse_chol_device as jscd
+
+    from clp_tpu_torch.ops import sparse_chol_device as tscd
+    from tests.test_sparse_chol import window_lp
+
+    lpj, _ = jax_ipm_form(window_lp(512, 1024, 40, 3))
+    fields = {f: np.asarray(getattr(lpj, f)) for f in ("G", "b", "c", "l", "u")}
+    fields["Q"] = None
+    G = sp.csr_matrix(fields["G"])
+    reg = JaxIPMOptions().reg_dual + 1e-12
+    out = {}
+    for name, jdt, tdt in (("f32", jnp.float32, torch.float32),
+                           ("f64", jnp.float64, torch.float64)):
+        sj = jscd.make_device_normal_solver(G, reg=reg, dtype=jdt)
+        st = tscd.make_device_normal_solver(G, reg=reg, dtype=tdt, device="cpu")
+        assert sj is not None and st is not None
+        rj = ipm_solve_jit(clp_tpu.forms.StandardLP(
+            **{k: (None if v is None else jnp.asarray(v)) for k, v in fields.items()}),
+            JaxIPMOptions(max_iter=40, sparse_chol_device=sj))
+        rt = ipm_solve(convert.standard_lp_from_numpy(fields, "cpu"),
+                       IPMOptions(max_iter=40, sparse_chol_device=st))
+        out[name] = (rj, rt)
+    rj, rt = out["f32"]
+    assert int(rj.iterations) == int(rt.iterations) == 40
+    assert not bool(rj.converged) and not bool(rt.converged)
+    pj, pt = float(rj.primal_infeas), float(rt.primal_infeas)
+    assert 1e-5 < pt < 1e-3 and 1e-5 < pj < 1e-3
+    assert abs(np.log10(pt / pj)) < 1.0
+    rj, rt = out["f64"]
+    assert bool(rj.converged) and bool(rt.converged)
+    assert int(rt.iterations) == int(rj.iterations)
+    assert abs(float(rt.pobj) - float(rj.pobj)) <= 1e-9 * abs(float(rj.pobj))

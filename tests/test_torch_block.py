@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.forms import to_standard_form as jax_standard_form
@@ -34,6 +35,14 @@ from clp_tpu_torch.utils import generators as tgen
 from test_torch_cuda import assert_price_close
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """numpy's OpenBLAS runs a spinning thread per core: beside five other
+    workers it starves the JAX package's host-timing tests."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 STAIR = (8, 32, 72)  # staircase_lp(nblocks, bm, bn): 256 x 576, standard form 256 x 832
 

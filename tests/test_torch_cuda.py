@@ -425,3 +425,65 @@ def test_barrier_solve_on_card(cuda_device):
     assert abs(card.objective_value - cpu.objective_value) <= 1e-9 * (
         1 + abs(cpu.objective_value))
     assert check_kkt(model, x=card.primal, y=card.duals, tol=1e-6).ok
+
+
+@pytest.mark.parametrize("gate", [1.0, 0.0])
+def test_pivot_kernel_above_the_shared_memory_limit_on_card(cuda_device, gate):
+    """m = 14,465, one row past the one-pass kernel's shared memory: the
+    two-pass path, one counted launch, against the plain version; gate 0
+    passes binv through bit for bit."""
+    m, r = pivot._K2_MAX_M + 1, 9000
+    g = torch.Generator(device="cpu").manual_seed(5)
+    binv = (torch.randn(m, m, generator=g) / m ** 0.5).to(cuda_device)
+    rho = binv[r].clone()
+    gq = torch.randn(m, generator=g).to(cuda_device)
+    triple = torch.stack([gq, rho, torch.randn(m, generator=g).to(cuda_device)], 1).contiguous()
+    args = [binv, triple, rho, torch.dot(rho, gq), torch.tensor(gate, device=cuda_device),
+            torch.tensor(r, device=cuda_device)]
+    n = fused_pivot_update.launches
+    bk, rk = fused_pivot_update(*args)
+    assert fused_pivot_update.launches == n + 1
+    bp, rp = fused_pivot_update_reference(*args)
+    torch.cuda.synchronize()
+    # unit-norm rows: sums of 14,465 products differ by a few f32 spacings
+    assert float((rk - rp).abs().max()) < 1e-4
+    assert float((bk - bp).abs().max()) < 1e-4
+    if gate == 0.0:
+        assert torch.equal(bk, binv)
+
+
+def test_pdhg_on_card_matches_cpu(cuda_device):
+    """The PDHG loop on one ELL matrix, on the card and on the CPU: the same
+    iteration count at tol 1e-4, iterates within 1e-9 relative (f64 sums
+    in another order)."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import pdlp
+
+    rng = np.random.default_rng(1)
+    m, n = 200, 400
+    A = sp.random(m, n, density=0.05, random_state=1, data_rvs=rng.standard_normal).tocsr()
+    b = A @ rng.uniform(0, 2, n) + 0.5
+    vecs = (np.linspace(-1, 1, n), np.full(m, -np.inf), b, np.zeros(n), np.full(n, 10.0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        E = pdlp.ell_from_scipy(A, dev)
+        t = [torch.as_tensor(v, device=dev) for v in vecs]
+        x, y, k, done = pdlp._pdhg(E, *t, 1e-4, max_iter=20000)
+        out[dev] = (x.cpu().numpy(), y.cpu().numpy(), int(k), bool(done))
+    assert out["cuda"][2] == out["cpu"][2] and out["cuda"][3] == out["cpu"][3]
+    for a, b_ in zip(out["cuda"][:2], out["cpu"][:2]):
+        np.testing.assert_allclose(a, b_, rtol=1e-9, atol=1e-9 * np.abs(b_).max())
+
+
+def test_idiot_descend_on_card_matches_cpu(cuda_device):
+    from clp_tpu_torch import crash
+
+    rng = np.random.default_rng(2)
+    m, n = 64, 300
+    A = (rng.random((m, n)) < 0.05) * 1.0
+    args = (A, rng.integers(1, 5, n).astype(float), np.ones(m), np.full(m, np.inf),
+            np.zeros(n), np.ones(n), np.zeros(n))
+    xs = [crash._idiot_descend(*(torch.as_tensor(a, device=dev) for a in args), 0.5, 12, 25)
+          .cpu().numpy() for dev in ("cpu", "cuda")]
+    np.testing.assert_allclose(xs[1], xs[0], rtol=1e-9, atol=1e-9 * np.abs(xs[0]).max())

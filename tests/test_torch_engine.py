@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from clp_tpu.forms import to_standard_form as jax_standard_form
 from clp_tpu.simplex import engine as je
@@ -19,6 +20,14 @@ from clp_tpu_torch.simplex import engine as te
 from clp_tpu_torch.utils import generators as tgen
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """numpy's OpenBLAS runs a spinning thread per core: beside five other
+    workers it starves the JAX package's host-timing tests."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def _fields(x) -> dict:

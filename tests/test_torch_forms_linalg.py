@@ -5,17 +5,28 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from clp_tpu.forms import to_standard_form as jax_standard_form
+from clp_tpu.ops import linalg as jax_linalg
 from clp_tpu.ops.linalg import lu_refactor as jax_lu, lu_refactor32 as jax_lu32
 from clp_tpu.utils import generators as jgen
 
 from clp_tpu_torch import convert
 from clp_tpu_torch.forms import to_standard_form
+from clp_tpu_torch.ops import linalg
 from clp_tpu_torch.ops.linalg import lu_refactor, lu_refactor32
 from clp_tpu_torch.utils import generators as tgen
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """numpy's OpenBLAS runs a spinning thread per core: beside five other
+    workers it starves the JAX package's host-timing tests."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 FAMILIES = {
     "random": ("random_lp", (12, 20), {"seed": 3}),
@@ -102,3 +113,31 @@ def test_lu_refactor_singular_flags_not_ok():
     _, okj32 = jax_lu32(jnp.asarray(B))
     _, okt32 = lu_refactor32(torch.as_tensor(B))
     assert bool(okt32) == bool(okj32) is False
+
+
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("block", [8, 16, 128])
+def test_blocked_lu_and_inverse_match_jax(which, block):
+    """The JAX package's TPU LU in plain torch: the same pivots and the
+    factors within 1e-10, for panels that divide m (8), pad it (16) and
+    exceed it (128); the inverse through it, and lu_refactor's unused
+    `block`, within 1e-10 of the JAX inverse (relative to its largest
+    entry)."""
+    B = _bases(9)[which]
+    LUj, pj = jax_linalg.blocked_lu(jnp.asarray(B), block)
+    LUt, pt = linalg.blocked_lu(torch.as_tensor(B), block)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    LUj = np.asarray(LUj)
+    assert np.abs(LUt.numpy() - LUj).max() <= 1e-10 * np.abs(LUj).max()
+    Xj = np.asarray(jax_linalg.blocked_inverse(jnp.asarray(B), block))
+    for Xt in (linalg.blocked_inverse(torch.as_tensor(B), block),
+               lu_refactor(torch.as_tensor(B), block=block)[0]):
+        assert np.abs(Xt.numpy() - Xj).max() <= 1e-10 * np.abs(Xj).max()
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_gauss_jordan_inverse_matches_jax(which):
+    B = _bases(10)[which]
+    Xj = np.asarray(jax_linalg.gauss_jordan_inverse(jnp.asarray(B)))
+    Xt = linalg.gauss_jordan_inverse(torch.as_tensor(B)).numpy()
+    assert np.abs(Xt - Xj).max() <= 1e-10 * np.abs(Xj).max()

@@ -103,25 +103,41 @@ def test_fp32_precision_guard():
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
 
-@pytest.mark.parametrize("kw, match", [
-    ({"method": "SPRINT"}, "other solvers"),
-    ({"method": "GUB"}, "other solvers"),
-    ({"method": "PDLP"}, "other solvers"),
-    ({"dual_pivot": "pesteepest"}, "pe"),
-    ({"price_mode": "ell"}, "ell"),
-    ({"shape_bucket": 64}, "shape_bucket"),
-    ({"crash": "idiot"}, "crash"),
-    ({"dualize": 1}, "dualize"),
-])
-def test_unported_routes_raise(kw, match):
+def _piecewise(model):
+    model.set_piecewise_cost(0, [0.0, 1.0, 10.0], [1.0, 2.0])
+    return model
+
+
+def _quadratic(model):
+    import scipy.sparse as sp
+
+    model.load_quadratic_objective(sp.identity(model.num_cols, format="csc"))
+    return model
+
+
+@pytest.mark.parametrize("kw, edit, match", [
+    ({"method": "DECOMPOSE"}, None, "decompose"),
+    ({}, _piecewise, "piecewise"),
+    ({}, _quadratic, "solve-level QP"),
+    ({"dual_pivot": "pesteepest"}, None, "pe"),
+    ({"price_mode": "ell"}, None, "ell"),
+    ({"shape_bucket": 64}, None, "shape_bucket"),
+    ({"method": "SPRINT", "devices": ["cpu", "cpu"]}, None, "multi-device"),
+    ({"method": "PRIMAL_SIMPLEX", "primal_pivot": "pe"}, None, "pe"),
+], ids=["decompose", "piecewise", "quadratic", "pesteepest", "ell", "shape_bucket",
+        "sprint-devices", "primal-pe"])
+def test_unported_routes_raise(kw, edit, match):
     from clp_tpu_torch import SolveOptions, initial_solve
     from clp_tpu_torch.constants import SolveMethod
     from clp_tpu_torch.utils.generators import random_lp
 
     kw = dict(kw)
     kw["method"] = SolveMethod[kw.get("method", "DUAL_SIMPLEX")]
+    model = random_lp(6, 9, seed=2)
+    if edit is not None:
+        model = edit(model)
     with pytest.raises(NotImplementedError, match=match):
-        initial_solve(random_lp(6, 9, seed=2), SolveOptions(device="cpu", **kw))
+        initial_solve(model, SolveOptions(device="cpu", **kw))
 
 
 def test_ablate_gates_raise():

@@ -5,6 +5,7 @@ CPU against the JAX package on the CPU."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.utils import generators as jgen
@@ -13,6 +14,14 @@ import clp_tpu_torch
 from clp_tpu_torch.utils import generators as tgen
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """numpy's OpenBLAS runs a spinning thread per core: beside five other
+    workers it starves the JAX package's host-timing tests."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 FAMILIES = {
     "random": ("random_lp", (12, 20), {"seed": 3}),

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse as sp
 import torch
+from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.ops import sparse_chol as jsc
@@ -20,6 +21,14 @@ from clp_tpu_torch.ops import sparse_chol_device as tscd
 from tests.test_sparse_chol import window_lp
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """numpy's OpenBLAS runs a spinning thread per core: beside five other
+    workers it starves the JAX package's host-timing tests."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def _window_G(m=512, ncols=1024, win=30, k=8, seed=0):
