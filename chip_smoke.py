@@ -25,9 +25,19 @@ AUTOMATIC destinations (`auto_phase`): six LPs through the default
 `initial_solve`, each asserted to take its route — a covering LP the
 idiot-warm dual, a wide LP SPRINT, a tall LP its dual, a min-cost flow
 NETWORK, a GUB LP GUB, a large sparse LP PDLP with `crunch_polish` — and
-checked against HiGHS. Last, each in a fresh process (`chip_smoke.py --profile-pivots dense|block`), it profiles
-200 pivots of the engine on the dense route and on the block route. Every
-phase that fails exits non-zero.
+checked against HiGHS. Then the solve-level QP and the single-model
+solvers (`nonlinear_phase`): the staircase with a diagonal Q through
+AUTOMATIC (BARRIER_NO_CROSS, banded with q_diag), a 2048-asset portfolio
+QP through AUTOMATIC (the dense (nt, nt) Newton branch) and through the
+QP simplex, which must agree, each held to the port's KKT check and its
+peak device memory printed; piecewise costs in the engine on the host and
+reformulated on the card, against HiGHS; SLP driven by torch.autograd,
+its LP sub-solves on the card; the dynamic matrix over an explicit
+universe against HiGHS, and one cutting-stock LP by column generation
+and by the dynamic matrix (`chip_smoke.py --nonlinear` runs this phase
+alone). Last, each in a fresh process (`chip_smoke.py --profile-pivots
+dense|block`), it profiles 200 pivots of the engine on the dense route
+and on the block route. Every phase that fails exits non-zero.
 
 Prints a `{"kernels": [...]}` line, the card's name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. Imports nothing of the JAX
@@ -1035,6 +1045,441 @@ def auto_phase(dev) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# nonlinear_phase: the solve-level QP and the single-model solvers
+# ---------------------------------------------------------------------------
+
+# sizes of the phase's models; a CPU rehearsal patches smaller ones in
+NL = {
+    "portfolio_n": 2048,  # (b): assets of the factor-model Markowitz QP
+    "pw_lp": (256, 1024),  # (c): the LP under the piecewise costs
+    # (d): the separable objective's LP, cut from random_lp(128, 256):
+    # there the trust region needs ~80 LP passes of ~400 primal pivots
+    # each to reach 1e-4 of the QP barrier (PERF.md §4)
+    "slp_lp": (64, 128),
+    "dyn_lp": (192, 3072),  # (e): the wide AUTOMATIC LP, explicit universe
+    # (e)'s starting working set: the 3m = 576 cheapest columns leave the
+    # LP infeasible, and dynamic_simplex_solve, as the JAX package's, stops
+    # there (it prices no phase 1; ROADMAP.md queue 3); 1024 starts feasible
+    "dyn_ws": 1024,
+    "cut_items": 50,  # (e): item widths of the cutting-stock LP
+}
+
+
+def separable_staircase_qp(seed: int = 0):
+    """(a): the bench staircase with Q = diag(uniform(0.1, 2.0)), the
+    recipe of tests/test_scale.py::test_separable_qp_banded_barrier."""
+    import scipy.sparse as sp
+
+    model = staircase_model()
+    rng = np.random.default_rng(seed)
+    model.load_quadratic_objective(sp.diags(rng.uniform(0.1, 2.0, model.num_cols)).tocsc())
+    return model
+
+
+def portfolio_qp(n: int, gamma: float = 2.0, seed: int = 0):
+    """(b): tests/test_batch.py's `_portfolio_qp`, a factor-model
+    Markowitz QP (one budget row, holdings in [0, 0.3]), as a port Model."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import Model
+
+    rng = np.random.default_rng(seed)
+    F = rng.normal(size=(n, max(2, n // 4)))
+    S = F @ F.T / n + np.eye(n) * 0.05
+    mu = rng.uniform(0.01, 0.12, n)
+    m = Model()
+    m.load_problem(sp.csc_matrix(np.ones((1, n))), np.zeros(n), np.full(n, 0.3), -mu,
+                   np.array([1.0]), np.array([1.0]))
+    m.quadratic_objective = sp.csc_matrix(gamma * S)
+    return m
+
+
+class QPSpy(RouteSpy):
+    """The QP routes `initial_solve` can take: the barrier, the QP simplex,
+    and any LP simplex (a crossover would run one)."""
+
+    TARGETS = [("solve", "_solve_barrier"), ("simplex.qp", "qp_simplex_solve"),
+               ("simplex.driver", "simplex_solve")]
+
+
+def kernel_launches() -> dict:
+    from clp_tpu_torch.ops.pivot import fused_pivot_update
+    from clp_tpu_torch.ops.price import price_and_ratios, price_and_ratios_block
+
+    return {"K1": price_and_ratios.launches, "K2": fused_pivot_update.launches,
+            "K3": price_and_ratios_block.launches}
+
+
+def zero_launches() -> None:
+    from clp_tpu_torch.ops.pivot import fused_pivot_update
+    from clp_tpu_torch.ops.price import price_and_ratios, price_and_ratios_block
+
+    price_and_ratios.launches = 0
+    fused_pivot_update.launches = 0
+    price_and_ratios_block.launches = 0
+
+
+def qp_path(dev, label, model, method, route, branch, kkt_tol) -> dict:
+    """One QP through `initial_solve` on the card: the route (asserted with
+    QPSpy), status, the port's KKT check at `kkt_tol`, the barrier's branch,
+    and the peak device memory of the solve."""
+    from clp_tpu_torch import SolveOptions, check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.solve import _auto_method
+
+    opts = SolveOptions(method=SolveMethod[method], device=dev.type)
+    if method == "AUTOMATIC":
+        auto = _auto_method(model, opts)
+        if auto.name != route:
+            raise AssertionError(f"qp [{label}]: AUTOMATIC chose {auto.name}, "
+                                 f"expected {route}")
+    shape = (model.num_rows, model.num_cols)
+    spy = QPSpy()
+    try:
+        zero_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = initial_solve(model, opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+    finally:
+        spy.close()
+    peak = torch.cuda.max_memory_allocated() / 2**20 if dev.type == "cuda" else None
+    entered = {name: len(spy.entered(name)) for name in
+               ("_solve_barrier", "qp_simplex_solve", "simplex_solve")}
+    want = ({"_solve_barrier": 1, "qp_simplex_solve": 0, "simplex_solve": 0}
+            if route == "BARRIER_NO_CROSS" else
+            {"_solve_barrier": 0, "qp_simplex_solve": 1, "simplex_solve": 0})
+    if entered != want:
+        raise AssertionError(f"qp [{label}]: routes entered {entered}, expected {want}")
+    if sol.status != ProblemStatus.OPTIMAL:
+        raise AssertionError(f"qp [{label}]: status {sol.status!r}, expected OPTIMAL")
+    rep = check_kkt(model, x=sol.primal, y=sol.duals, tol=kkt_tol)
+    if not rep.ok:
+        raise AssertionError(f"qp [{label}]: KKT check at {kkt_tol} failed: {rep}")
+    info = {"label": label, "route": route, "wall": wall, "objective": sol.objective_value,
+            "peak_mib": peak, "launches": launches}
+    if route == "BARRIER_NO_CROSS":
+        stats = sol.timings["barrier_stats"]
+        if not branch(stats["branch"]):
+            raise AssertionError(f"qp [{label}]: barrier branch {stats['branch']!r}")
+        info |= {"branch": stats["branch"], "ipm_iterations": stats["iterations"],
+                 "ipm_seconds": stats["seconds"], "ipm_converged": stats["converged"],
+                 "f64_retry": stats["f64_retry"]}
+        detail = (f"{stats['branch']}; IPM {stats['iterations']} iterations "
+                  f"({'converged' if stats['converged'] else 'NOT converged'}) in "
+                  f"{stats['seconds']:.3f} s, f64 retry: {stats['f64_retry'] or 'not needed'}")
+    else:
+        st = sol.timings["qp_stats"]
+        info |= st
+        detail = (f"QP simplex: phase 1 {st['phase1_iterations']} dual pivots in "
+                  f"{st['phase1_seconds']:.3f} s, {st['qp_iterations']} QP iterations in "
+                  f"{st['qp_seconds']:.3f} s "
+                  f"({1e3 * st['qp_seconds'] / max(st['qp_iterations'], 1):.2f} ms/iteration)")
+    print(f"nonlinear [{label}: {shape[0]} x {shape[1]}, {method} -> {route}]: OPTIMAL "
+          f"obj={sol.objective_value!r}, KKT ok at {kkt_tol}; {detail}; solve wall={wall:.3f} s, "
+          f"peak device memory {peak if peak is None else round(peak, 1)} MiB, "
+          f"launches={launches}", flush=True)
+    return info
+
+
+def piecewise_costs(model, seed: int = 3) -> dict:
+    """(c): a convex 3-piece cost on every column of the model: breakpoints
+    at the column's bounds and two interior kinks, slopes c_j + sorted
+    N(0, 1) draws."""
+    rng = np.random.default_rng(seed)
+    pw = {}
+    for j in range(model.num_cols):
+        lo, up = model.col_lower[j], model.col_upper[j]
+        t = np.sort(rng.uniform(0.1, 0.9, 2))
+        pw[j] = (np.concatenate([[lo], lo + (up - lo) * t, [up]]),
+                 np.sort(model.objective[j] + rng.normal(size=3)))
+    return pw
+
+
+def piecewise_path(dev) -> dict:
+    """(c): `solve_piecewise` in the engine on the host, and the
+    reformulation `set_piecewise_linear_cost` through `initial_solve` on
+    the card, by the dual simplex with presolve off as tests/test_piecewise.py
+    solves it (AUTOMATIC takes SPRINT there, several times slower: PERF.md
+    §4); both against HiGHS on the reformulation."""
+    from clp_tpu_torch import SolveOptions, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.piecewise import set_piecewise_linear_cost, solve_piecewise
+    from clp_tpu_torch.utils.generators import random_lp
+
+    m, n = NL["pw_lp"]
+    base = random_lp(m, n, seed=3)
+    pw = piecewise_costs(base)
+    t0 = time.perf_counter()
+    inengine = solve_piecewise(base.copy(), pw)
+    pw_wall = time.perf_counter() - t0
+    reform = base.copy()
+    for j in range(n):
+        set_piecewise_linear_cost(reform, j, *pw[j])
+    spy = RouteSpy()
+    try:
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opts = SolveOptions(method=SolveMethod.DUAL_SIMPLEX, device=dev.type)
+        opts.presolve.enabled = False
+        sol = initial_solve(reform, opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+    finally:
+        spy.close()
+    route, counts = route_summary(spy, sol)
+    ref = highs_objective(reform)
+    for what, s in (("in-engine", inengine), ("reformulation", sol)):
+        if s.status != ProblemStatus.OPTIMAL:
+            raise AssertionError(f"piecewise [{what}]: status {s.status!r}")
+        if not abs(s.objective_value - ref) <= 1e-6 * (1 + abs(ref)):
+            raise AssertionError(f"piecewise [{what}]: objective {s.objective_value!r} "
+                                 f"vs HiGHS {ref!r}")
+    print(f"nonlinear [piecewise {m} x {n}, 3 pieces a column]: in-engine solve_piecewise "
+          f"(host) OPTIMAL obj={inengine.objective_value!r} in {inengine.iterations} "
+          f"iterations, {pw_wall:.3f} s; reformulation {reform.num_rows} x {reform.num_cols} "
+          f"by DUAL_SIMPLEX: {route}, OPTIMAL obj={sol.objective_value!r}, {counts}, "
+          f"solve wall={wall:.3f} s, launches={launches}; HiGHS {ref!r}", flush=True)
+    return {"label": "piecewise", "pw_iterations": inengine.iterations, "pw_wall": pw_wall,
+            "reform_route": route, "reform_wall": wall, "launches": launches}
+
+
+def slp_path(dev) -> dict:
+    """(d): `nonlinear_slp` with torch callables and no gradient (autograd
+    drives it), its LP sub-solves on the card: the convex log objective of
+    tests/test_slp.py against its optimum (1, 1), and a separable convex
+    objective against the QP barrier of its quadratic twin."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import INF, Model, SolveOptions, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.slp import nonlinear_slp
+    from clp_tpu_torch.utils.generators import random_lp
+
+    small = Model()
+    small.load_problem(sp.csc_matrix(np.array([[1.0, 1.0]])), col_lower=[0.1, 0.1],
+                       col_upper=[5.0, 5.0], objective=[0.0, 0.0], row_lower=[-INF],
+                       row_upper=[4.0])
+    t0 = time.perf_counter()
+    s1 = nonlinear_slp(small, lambda x: -torch.log(x[0]) - torch.log(x[1]) + x[0] + x[1],
+                       max_passes=60, device=dev.type)
+    w1 = time.perf_counter() - t0
+    if s1.status != ProblemStatus.OPTIMAL or not np.allclose(s1.primal, 1.0, atol=5e-3):
+        raise AssertionError(f"slp [log]: {s1.status!r} at {s1.primal}, expected (1, 1)")
+    m, n = NL["slp_lp"]
+    model = random_lp(m, n, seed=4)
+    q = np.random.default_rng(4).uniform(0.5, 2.0, n)
+    c, qt = torch.as_tensor(model.objective), torch.as_tensor(q)
+    t0 = time.perf_counter()
+    s2 = nonlinear_slp(model.copy(), lambda x: c @ x + 0.5 * torch.sum(qt * x * x),
+                       max_passes=80, device=dev.type)
+    w2 = time.perf_counter() - t0
+    twin = model.copy()
+    twin.load_quadratic_objective(sp.diags(q).tocsc())
+    ref = initial_solve(twin, SolveOptions(method=SolveMethod.BARRIER, crossover=False,
+                                           device=dev.type))
+    if s2.status != ProblemStatus.OPTIMAL or ref.status != ProblemStatus.OPTIMAL:
+        raise AssertionError(f"slp [separable]: {s2.status!r}, QP barrier {ref.status!r}")
+    # tests/test_slp.py's tolerance for SLP against the QP barrier
+    if not abs(s2.objective_value - ref.objective_value) < 1e-4 * (
+            1 + abs(ref.objective_value)):
+        raise AssertionError(f"slp [separable]: {s2.objective_value!r} vs the QP "
+                             f"barrier's {ref.objective_value!r}")
+    print(f"nonlinear [SLP]: log objective OPTIMAL at {s1.primal.tolist()} in {s1.iterations} "
+          f"passes, {w1:.3f} s; separable on random_lp({m}, {n}) OPTIMAL "
+          f"obj={s2.objective_value!r} in {s2.iterations} passes, {w2:.3f} s; QP barrier twin "
+          f"{ref.objective_value!r} ({ref.timings['barrier_stats']['branch']})", flush=True)
+    return {"label": "slp", "log_passes": s1.iterations, "log_wall": w1,
+            "separable_passes": s2.iterations, "separable_wall": w2}
+
+
+class CuttingStockSource:
+    """Gilmore-Gomory pricing for `dynamic_simplex_solve`: columns are
+    cutting patterns from a DP knapsack on the current duals, never
+    enumerated up front; the source of tests/test_dynamic.py."""
+
+    n_total = -1
+
+    def __init__(self, widths, roll):
+        self.w = np.asarray(widths, dtype=np.int64)
+        self.roll = int(roll)
+        self.m = len(widths)
+        self.ids = {}
+
+    def _id(self, pat):
+        return self.ids.setdefault(tuple(pat), len(self.ids))
+
+    def initial(self, k):
+        pats = [np.where(np.arange(self.m) == i, self.roll // self.w[i], 0)
+                for i in range(self.m)]
+        A = np.array(pats, dtype=float).T
+        kk = A.shape[1]
+        return (A, np.ones(kk), np.zeros(kk), np.full(kk, 1e30),
+                np.array([self._id(p) for p in pats]))
+
+    def price(self, y, k):
+        pat, val = knapsack(self.w, self.roll, np.maximum(y, 0.0))
+        if val <= 1.0 + 1e-7:
+            return (np.zeros((self.m, 0)), np.zeros(0), np.zeros(0), np.zeros(0),
+                    np.zeros(0, np.int64))
+        return (pat.astype(float).reshape(self.m, 1), np.ones(1), np.zeros(1),
+                np.full(1, 1e30), np.array([self._id(pat)]))
+
+
+def knapsack(w, roll: int, values):
+    """max values'p s.t. w'p <= roll, p >= 0 integer, by DP over the roll."""
+    best = np.zeros(roll + 1)
+    take = np.full(roll + 1, -1)
+    for cap in range(1, roll + 1):
+        best[cap] = best[cap - 1]
+        for i in range(len(w)):
+            if w[i] <= cap and best[cap - w[i]] + values[i] > best[cap] + 1e-12:
+                best[cap], take[cap] = best[cap - w[i]] + values[i], i
+    pat, cap = np.zeros(len(w), dtype=np.int64), roll
+    while cap > 0:
+        if take[cap] < 0:
+            cap -= 1
+        else:
+            pat[take[cap]] += 1
+            cap -= w[take[cap]]
+    return pat, best[roll]
+
+
+def cutting_stock(items: int, seed: int = 0):
+    """(e): item widths in [15, 95) without repeats, a roll of 200, demands
+    in [10, 100)."""
+    rng = np.random.default_rng(seed)
+    widths = np.sort(rng.choice(np.arange(15, 95), items, replace=False))
+    return widths, 200, rng.integers(10, 100, items).astype(float)
+
+
+def dynamic_path(dev) -> dict:
+    """(e): `dynamic_simplex_solve` over the wide AUTOMATIC LP's explicit
+    universe against HiGHS on the whole LP; then one cutting-stock LP
+    relaxation by `column_generation` (the knapsack pricer, master on the
+    card) and by `dynamic_simplex_solve` (the pricing source): the same
+    bound."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import INF, Model, SolveOptions
+    from clp_tpu_torch.colgen import column_generation
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.dynamic import ExplicitColumnSource, dynamic_simplex_solve
+    from clp_tpu_torch.utils.generators import random_lp
+
+    m, n = NL["dyn_lp"]
+    model = random_lp(m, n, density=0.01, seed=1)
+    model.col_lower = np.zeros(n)  # the colgen convention: l = 0
+    model.col_upper = np.full(n, 50.0)
+    src = ExplicitColumnSource(model.matrix, model.objective, model.col_lower,
+                               model.col_upper)
+    # from the 3m cheapest columns the LP is infeasible, and the dynamic
+    # matrix stops there, as the JAX package's does (ROADMAP.md queue 3)
+    start, sinfo = dynamic_simplex_solve(model.row_lower, model.row_upper, src,
+                                         working_set=3 * m,
+                                         options=SolveOptions(device=dev.type))
+    if start.status != ProblemStatus.PRIMAL_INFEASIBLE or sinfo["swaps"]:
+        raise AssertionError(f"dynamic [wide, {3 * m} columns]: {start.status!r}, {sinfo}")
+    print(f"nonlinear [dynamic {m} x {n}, working set {3 * m}]: PRIMAL_INFEASIBLE from "
+          f"its {3 * m} cheapest columns after {start.iterations} pivots, no phase-1 "
+          "pricing (as in the JAX package)", flush=True)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ws = NL["dyn_ws"]
+    sol, info = dynamic_simplex_solve(model.row_lower, model.row_upper, src,
+                                      working_set=ws, options=SolveOptions(device=dev.type))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = highs_objective(model)
+    if sol.status != ProblemStatus.OPTIMAL or not info["proved_optimal_over_universe"]:
+        raise AssertionError(f"dynamic [wide]: {sol.status!r}, {info}")
+    if not abs(sol.objective_value - ref) <= 1e-6 * (1 + abs(ref)):
+        raise AssertionError(f"dynamic [wide]: objective {sol.objective_value!r} "
+                             f"vs HiGHS {ref!r}")
+    print(f"nonlinear [dynamic {m} x {n}, working set {ws}]: OPTIMAL "
+          f"obj={sol.objective_value!r} (HiGHS {ref!r}), {info['rounds']} rounds, "
+          f"{info['swaps']} swaps, final working set {info['working_set']}, "
+          f"{sol.iterations} primal pivots, wall={wall:.3f} s, "
+          f"launches={kernel_launches()}", flush=True)
+
+    widths, roll, demand = cutting_stock(NL["cut_items"])
+    k = len(widths)
+    master = Model()
+    master.load_problem(sp.csc_matrix(np.diag(np.floor(roll / widths))), np.zeros(k),
+                        np.full(k, INF), np.ones(k), demand, np.full(k, INF))
+    rounds = []
+
+    def pricer(duals):
+        rounds.append(1)
+        pat, val = knapsack(widths, roll, duals)
+        return [(pat, 1.0, 0.0, INF)] if val > 1.0 + 1e-7 else []
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg = column_generation(master, pricer,
+                           SolveOptions(method=SolveMethod.DUAL_SIMPLEX, device=dev.type))
+    torch.cuda.synchronize()
+    cg_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dyn, dinfo = dynamic_simplex_solve(demand, np.full(k, INF),
+                                       CuttingStockSource(widths, roll),
+                                       working_set=2 * k, options=SolveOptions(device=dev.type))
+    torch.cuda.synchronize()
+    dyn_wall = time.perf_counter() - t0
+    if cg.status != ProblemStatus.OPTIMAL or dyn.status != ProblemStatus.OPTIMAL or \
+            not dinfo["proved_optimal_over_universe"]:
+        raise AssertionError(f"cutting stock: colgen {cg.status!r}, dynamic {dyn.status!r}")
+    if not abs(cg.objective_value - dyn.objective_value) <= 1e-6 * (
+            1 + abs(cg.objective_value)):
+        raise AssertionError(f"cutting stock: colgen {cg.objective_value!r} vs dynamic "
+                             f"{dyn.objective_value!r}")
+    print(f"nonlinear [cutting stock, {k} widths, roll {roll}]: column_generation OPTIMAL "
+          f"obj={cg.objective_value!r} in {len(rounds)} pricing rounds "
+          f"({master.num_cols} columns), {cg_wall:.3f} s; dynamic_simplex_solve OPTIMAL "
+          f"obj={dyn.objective_value!r} in {dinfo['rounds']} rounds, {dinfo['swaps']} swaps, "
+          f"final working set {dinfo['working_set']}, {dyn_wall:.3f} s", flush=True)
+    return {"label": "dynamic", "rounds": info["rounds"], "swaps": info["swaps"],
+            "working_set": info["working_set"], "wall": wall,
+            "cg_rounds": len(rounds), "cg_wall": cg_wall,
+            "cut_rounds": dinfo["rounds"], "cut_swaps": dinfo["swaps"], "cut_wall": dyn_wall}
+
+
+def nonlinear_phase(dev) -> list:
+    """The solve-level QP and the single-model solvers on the card:
+    (a) the separable staircase QP through AUTOMATIC (BARRIER_NO_CROSS,
+    banded q_diag); (b) the dense-Q portfolio QP through AUTOMATIC (the
+    (nt, nt) Newton branch) and PRIMAL_SIMPLEX (the QP simplex), which must
+    agree; (c) piecewise costs; (d) SLP; (e) the dynamic matrix and column
+    generation. No QP runs BARRIER with crossover: its LP crossover ignores
+    Q, as the JAX package's does (ROADMAP.md queue 3)."""
+    t_phase = time.perf_counter()
+    runs = [qp_path(dev, "separable staircase", separable_staircase_qp(), "AUTOMATIC",
+                    "BARRIER_NO_CROSS",
+                    lambda b: b.startswith("banded") and b.endswith("q_diag"), 1e-5)]
+    n = NL["portfolio_n"]
+    bar = qp_path(dev, f"portfolio n={n}", portfolio_qp(n), "AUTOMATIC", "BARRIER_NO_CROSS",
+                  lambda b: b == "dense QP (nt, nt)", 1e-5)
+    smp = qp_path(dev, f"portfolio n={n}", portfolio_qp(n), "PRIMAL_SIMPLEX",
+                  "PRIMAL_SIMPLEX", None, 1e-6)
+    if not abs(smp["objective"] - bar["objective"]) <= 1e-6 * (1 + abs(bar["objective"])):
+        raise AssertionError(f"portfolio: QP simplex {smp['objective']!r} vs QP barrier "
+                             f"{bar['objective']!r}")
+    print(f"nonlinear [portfolio n={n}]: QP simplex and QP barrier agree within "
+          f"1e-6 * (1 + |obj|): {smp['objective']!r} vs {bar['objective']!r}", flush=True)
+    runs += [bar, smp, piecewise_path(dev), slp_path(dev), dynamic_path(dev)]
+    print(f"nonlinear phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs
+
+
 def profile_pivots(dev, route: str, pivots: int = 200) -> None:
     """Where a pivot's time goes on the card.
 
@@ -1177,6 +1622,9 @@ def main() -> int:
     barrier_phase(dev)
     auto_runs = auto_phase(dev)
     k1["auto_phase_launches"] = sum(r["launches"]["K1"] for r in auto_runs)
+    nl_runs = nonlinear_phase(dev)
+    k1["nonlinear_phase_launches"] = sum(r["launches"]["K1"] for r in nl_runs
+                                         if "launches" in r)
     # each in a process of its own: torch.profiler leaves state behind that
     # slows the host side of its process, and the same pivots ran slower
     # after the solves above than in a fresh process
@@ -1185,7 +1633,8 @@ def main() -> int:
                        check=True, timeout=600)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    extra = ("launch_floor_ms", "above_limit", "auto_phase_launches")
+    extra = ("launch_floor_ms", "above_limit", "auto_phase_launches",
+             "nonlinear_phase_launches")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys} | {k: v for k, v in rec.items() if k in extra}
         for rec in (k1, k2, k3)]}))
@@ -1193,6 +1642,23 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def nonlinear_main() -> int:
+    """`chip_smoke.py --nonlinear`: the kernels' build and `nonlinear_phase`
+    alone, for work on that phase (the contract run is the one with no
+    arguments)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from clp_tpu_torch.ops import build
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    build.build_all(["price", "pivot", "price_block"])
+    nonlinear_phase(torch.device("cuda"))
     return 0
 
 
@@ -1211,4 +1677,6 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     if len(args) == 2 and args[0] == "--profile-pivots" and args[1] in ("dense", "block"):
         sys.exit(profile_main(args[1]))
+    if args == ["--nonlinear"]:
+        sys.exit(nonlinear_main())
     sys.exit(main())

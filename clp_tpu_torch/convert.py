@@ -1,6 +1,6 @@
 """Carry LP and simplex state between numpy and the port's tensors.
 
-The JAX package's `StandardLP`, `SimplexState` and `IPMResult` are
+The JAX package's `StandardLP`, `SimplexState`, `QPState` and `IPMResult` are
 pytrees of arrays; their fields, as numpy arrays in a `{name: array}` dict,
 go through `*_from_numpy` to the port's dataclasses on a chosen device, and
 back through `*_to_numpy`. `FormInfo` (host bookkeeping of a form) and the
@@ -20,6 +20,7 @@ from .forms import FormInfo, StandardLP
 from .interior.mehrotra import IPMResult
 from .pdlp import EllMatrix
 from .simplex.engine import SimplexState
+from .simplex.qp import QPState
 
 # dtypes the port keeps per SimplexState field where JAX's differ
 # (torch indexes with int64; the JAX package stores int32 indices)
@@ -54,6 +55,19 @@ def simplex_state_from_numpy(fields: dict, device) -> SimplexState:
 
 
 def simplex_state_to_numpy(state: SimplexState) -> dict:
+    out = {f.name: getattr(state, f.name).detach().cpu().numpy()
+           for f in dataclasses.fields(state)}
+    out["basis"] = out["basis"].astype(np.int32)
+    return out
+
+
+def qp_state_from_numpy(fields: dict, device) -> QPState:
+    return QPState(**{
+        f.name: _tensor(fields[f.name], device, _STATE_INT.get(f.name))
+        for f in dataclasses.fields(QPState)})
+
+
+def qp_state_to_numpy(state: QPState) -> dict:
     out = {f.name: getattr(state, f.name).detach().cpu().numpy()
            for f in dataclasses.fields(state)}
     out["basis"] = out["basis"].astype(np.int32)

@@ -1178,6 +1178,17 @@ def _one_chunk(lp, state, opts, iteration_fn, verify_fn):
     return state, verified, obj
 
 
+def dual_chunk(lp: StandardLP, state: SimplexState, opts: SimplexOptions):
+    """One dual chunk: (state, verified, objective) as device tensors."""
+    return _one_chunk(lp, state, opts, _dual_iteration_fn(lp, opts), _verify_dual_claim)
+
+
+def primal_chunk(lp: StandardLP, state: SimplexState, opts: SimplexOptions):
+    """One primal chunk: (state, verified, objective) as device tensors."""
+    return _one_chunk(lp, state, opts, _primal_iteration_fn(lp, opts),
+                      _verify_primal_claim)
+
+
 def _pack_info(state: SimplexState, verified, obj):
     f64 = torch.float64
     return torch.stack([state.status.to(f64), state.iterations.to(f64),
@@ -1187,14 +1198,12 @@ def _pack_info(state: SimplexState, verified, obj):
 def dual_chunk_packed(lp: StandardLP, state: SimplexState, opts: SimplexOptions):
     """One dual chunk + ONE packed f64[4] = [status, iterations, verified,
     objective], so host chunk loops pay a single device fetch per chunk."""
-    state, verified, obj = _one_chunk(
-        lp, state, opts, _dual_iteration_fn(lp, opts), _verify_dual_claim)
+    state, verified, obj = dual_chunk(lp, state, opts)
     return state, _pack_info(state, verified, obj)
 
 
 def primal_chunk_packed(lp: StandardLP, state: SimplexState, opts: SimplexOptions):
-    state, verified, obj = _one_chunk(
-        lp, state, opts, _primal_iteration_fn(lp, opts), _verify_primal_claim)
+    state, verified, obj = primal_chunk(lp, state, opts)
     return state, _pack_info(state, verified, obj)
 
 

@@ -11,9 +11,12 @@ Mirrors the reference's dispatcher flow (ClpSolve.cpp:845-4070):
 The port runs DUAL_SIMPLEX, PRIMAL_SIMPLEX (with the idiot or triangular
 crash start), PRIMAL_IDIOT, BARRIER, BARRIER_NO_CROSS, SPRINT, PDLP (with
 its simplex polish), NETWORK, GUB and the dualize of tall LPs, and
-AUTOMATIC wherever it lands but DECOMPOSE. DECOMPOSE and every other route
-the port lacks (piecewise costs, a quadratic objective, a device mesh)
-raise NotImplementedError naming their ROADMAP.md item.
+AUTOMATIC wherever it lands but DECOMPOSE; a quadratic objective on the
+barrier or on the reduced-gradient QP simplex (simplex/qp.py), and
+piecewise-linear costs on the in-engine primal (piecewise.py). The routes
+it still lacks raise NotImplementedError naming their ROADMAP.md queue 1
+item: DECOMPOSE, `ell` / `pe` pricing, `shape_bucket`, a device mesh
+(multi-device); batching has no entry point here yet.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from .constants import INF, ProblemStatus, ScalingMode, SecondaryStatus, SolveMethod
-from .device import resolve_device
+from .device import on_accelerator, resolve_device
 from .forms import expand_ipm_solution, to_ipm_form
 from .model import Model, Solution
 from .options import SolveOptions
@@ -52,22 +55,39 @@ def _empty_solution(model: Model) -> Solution:
     n, m = model.num_cols, model.num_rows
     c = model.objective
     l, u = model.col_lower, model.col_upper
-    if model.quadratic_objective is not None:
-        raise _not_ported("a quadratic objective", "solve-level QP")
+    Q = model.quadratic_objective
     unbounded = False
     if n == 0:
         x = np.zeros(0)
-    else:
+    elif Q is None:
         x = np.where(c > 0, l, np.where(c < 0, u, np.clip(0.0, l, u)))
         unbounded = bool(np.any((c > 0) & (l <= -INF)) or np.any((c < 0) & (u >= INF)))
         x = np.clip(x, np.maximum(l, -INF), np.minimum(u, INF))
+    else:
+        # box QP: projected gradient (convex; small after presolve)
+        Qd = np.asarray(Q.todense()) if hasattr(Q, "todense") else np.asarray(Q)
+        lam = float(np.linalg.norm(Qd, 2)) if n else 1.0
+        step = 1.0 / max(lam, 1e-12)
+        lo = np.maximum(l, -1e18)
+        hi = np.minimum(u, 1e18)
+        x = np.clip(np.zeros(n), lo, hi)
+        for _ in range(2000):
+            g = c + Qd @ x
+            x_new = np.clip(x - step * g, lo, hi)
+            if np.max(np.abs(x_new - x)) < 1e-12 * (1 + np.max(np.abs(x))):
+                x = x_new
+                break
+            x = x_new
     obj = float(c @ x) + model.objective_offset
+    if Q is not None:
+        obj += 0.5 * float(x @ (Q @ x))
+    dj = c.copy() if Q is None else c + np.asarray(Q @ x).ravel()
     sol = Solution(
         status=ProblemStatus.DUAL_INFEASIBLE if unbounded else ProblemStatus.OPTIMAL,
         objective_value=obj,
         primal=x,
         duals=np.zeros(m),
-        reduced_costs=c.copy(),
+        reduced_costs=dj,
         row_activity=np.zeros(m) if n == 0 else model.matrix @ x,
     )
     infeas_col = np.any(model.col_lower > model.col_upper + 1e-12)
@@ -236,8 +256,12 @@ def _ipm_to_solution(model: Model, res, info, options: SolveOptions) -> Solution
     y = res.y.cpu().numpy() * sense
     A = model.matrix
     d = model.objective - A.T @ y
+    if model.quadratic_objective is not None:
+        d = d + sense * (model.quadratic_objective @ x)
     row_act = A @ x
     obj = float(model.objective @ x) + model.objective_offset
+    if model.quadratic_objective is not None:
+        obj += 0.5 * float(x @ (model.quadratic_objective @ x))
 
     converged = bool(res.converged)
     status = ProblemStatus.OPTIMAL if converged else ProblemStatus.STOPPED
@@ -323,6 +347,13 @@ def _barrier_plan(G: np.ndarray, opts, device: torch.device):
     return None, opts
 
 
+def _mixed32_auto(device: torch.device) -> bool:
+    """barrier_mixed32="auto": on the card f32 assembly and factor + f64
+    refinement, the JAX package's TPU setting (ROADMAP.md queue 4 asks
+    whether Hopper's native f64 wants otherwise); f64 elsewhere."""
+    return device.type == "cuda"
+
+
 def _solve_barrier(model: Model, options: SolveOptions) -> Solution:
     """The barrier on the model's IPM form, on options.device: plan the
     Newton branch on the host, run the IPM, map its point back."""
@@ -336,10 +367,7 @@ def _solve_barrier(model: Model, options: SolveOptions) -> Solution:
     boost = 100.0 if options.barrier_regularize else 1.0
     mixed32 = getattr(options, "barrier_mixed32", "auto")
     if mixed32 == "auto":
-        # the card: f32 assembly and factor + f64 refinement, the JAX
-        # package's TPU setting (ROADMAP.md queue 4 asks whether Hopper's
-        # native f64 wants otherwise)
-        mixed32 = device.type == "cuda"
+        mixed32 = _mixed32_auto(device)
     opts = IPMOptions(
         tol=options.barrier_tolerance,
         max_iter=options.barrier_max_iterations,
@@ -347,19 +375,43 @@ def _solve_barrier(model: Model, options: SolveOptions) -> Solution:
         reg_dual=1e-10 * boost,
         mixed32=bool(mixed32),
     )
-    perm, opts = _barrier_plan(lp.G.numpy(), opts, device)
+    perm = None
+    if lp.Q is not None:
+        # separable QP: a diagonal Q keeps H = Q + D^-1 diagonal, so the
+        # barrier takes the LP Newton branches (incl. banded) with
+        # dinv += diag(Q) instead of the (nt, nt) Cholesky. The form is on
+        # the host: one view of Q, no per-entry read.
+        Qh = lp.Q.numpy()
+        if np.count_nonzero(Qh - np.diag(np.diagonal(Qh))) == 0:
+            opts = dataclasses.replace(opts, q_diag=True)
+    if lp.Q is None or opts.q_diag:
+        perm, opts = _barrier_plan(lp.G.numpy(), opts, device)
     if perm is not None:
         # permute ROWS so the normal matrix is banded; x and columns are
         # untouched, so only y needs unpermuting afterwards
         perm = torch.as_tensor(np.ascontiguousarray(perm, dtype=np.int64))
         lp = dataclasses.replace(lp, G=lp.G[perm], b=lp.b[perm])
     lp = dataclasses.replace(lp, **{k: getattr(lp, k).to(device)
-                                    for k in ("G", "b", "c", "l", "u")})
+                                    for k in ("G", "b", "c", "l", "u", "Q")
+                                    if getattr(lp, k) is not None})
     t0 = time.perf_counter()
-    # no f64 retry of an unconverged mixed32 IPM: the JAX package retries
-    # only a QP (an LP that fails goes to the simplex, which finishes or
-    # adjudicates it in initial_solve), and QPs are not ported
     res = ipm_solve(lp, opts)
+    retry = None
+    if (
+        not bool(res.converged)
+        and opts.mixed32
+        and getattr(options, "barrier_mixed32", "auto") == "auto"
+        and (not on_accelerator(lp.G) or lp.Q is not None)
+    ):
+        # f64 escalation: when Jacobi scaling + refinement cannot recover
+        # the Newton direction, one full-f64 retry. On the card, as on the
+        # JAX package's TPU branch, only a QP retries: an LP goes to the
+        # simplex adjudication in initial_solve instead.
+        res64 = ipm_solve(lp, dataclasses.replace(opts, mixed32=False,
+                                                  sparse_chol_device=None))
+        retry = "converged" if bool(res64.converged) else "not converged"
+        if bool(res64.converged):
+            res = res64
     from .events import get_handler
 
     mh = get_handler(model, options)
@@ -381,19 +433,24 @@ def _solve_barrier(model: Model, options: SolveOptions) -> Solution:
     # the Newton branch taken and the IPM's own count and wall (the
     # crossover's simplex keeps these beside its own statistics)
     sol.timings = {"barrier_stats": {
-        "branch": _branch_name(opts), "iterations": int(res.iterations),
-        "converged": bool(res.converged), "seconds": seconds}}
+        "branch": _branch_name(opts, lp.Q is not None), "iterations": int(res.iterations),
+        "converged": bool(res.converged), "seconds": seconds, "f64_retry": retry}}
     return sol
 
 
-def _branch_name(opts) -> str:
+def _branch_name(opts, quadratic: bool = False) -> str:
+    """The Newton branch the IPM ran; a separable QP's name ends in q_diag."""
+    if quadratic and not opts.q_diag:
+        return "dense QP (nt, nt)"
     if opts.band_nb > 0:
-        return f"banded nb={opts.band_nb}"
-    if opts.sparse_chol_device is not None:
-        return "device multifrontal"
-    if opts.sparse_chol is not None:
-        return "host multifrontal"
-    return "dense mixed32" if opts.mixed32 else "dense f64"
+        name = f"banded nb={opts.band_nb}"
+    elif opts.sparse_chol_device is not None:
+        name = "device multifrontal"
+    elif opts.sparse_chol is not None:
+        name = "host multifrontal"
+    else:
+        name = "dense mixed32" if opts.mixed32 else "dense f64"
+    return f"{name} q_diag" if opts.q_diag else name
 
 
 def _solve_simplex(model: Model, options: SolveOptions, dual: bool,
@@ -506,8 +563,18 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
     warm_basis_pending = bool(getattr(model, "warm_start_pending", False))
     model.warm_start_pending = False
 
+    # --- piecewise-linear costs (ClpNonLinearCost attachment): route to
+    # the in-engine kink-aware primal simplex; presolve/scaling would
+    # invalidate the per-column breakpoint specs, so this path owns the
+    # whole solve (the reference's nonlinear-cost solves skip presolve
+    # the same way)
     if getattr(model, "piecewise_costs", None):
-        raise _not_ported("piecewise-linear costs", "the other solvers (piecewise.py)")
+        from .piecewise import solve_piecewise
+
+        sol = solve_piecewise(model, model.piecewise_costs, options)
+        sol.timings = {"solve": sol.solve_time}
+        _fire(model, Event.END_SOLVE, status=sol.status, time=sol.solve_time)
+        return sol
     # --- dualize: solve the transposed model and map back (reference:
     # ClpSimplexOther::dualOfModel/restoreFromDual, ClpSimplexOther.cpp:1681).
     # Auto: very tall LPs transpose to wide ones the engines handle better
@@ -523,8 +590,6 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
         initial_solve(dm, dataclasses.replace(options, dualize=0))
         restore_from_dual(model, dm, mapping)
         return model.solution
-    if model.quadratic_objective is not None:
-        raise _not_ported("a quadratic objective", "solve-level QP")
 
     # --- rim scale factors (objScale / rhsScale dblParams,
     # ClpModel.hpp:1124-1161): scale in, unscale out ---
@@ -594,6 +659,7 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
                                SolveMethod.PRIMAL_SIMPLEX,
                                SolveMethod.PRIMAL_IDIOT,
                                SolveMethod.AUTOMATIC)
+        and model.quadratic_objective is None
         and model.solution.column_status is not None
         and model.solution.row_status is not None
         and np.asarray(model.solution.column_status).size == model.num_cols
@@ -617,6 +683,11 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
                           f"AUTOMATIC destinations ({_AUTO_UNPORTED[method]})")
 
     # --- presolve ---
+    # QP: Q-aware transforms only (fixed columns fold Q terms into the rim;
+    # variable-eliminating transforms are gated off inside presolve() —
+    # reference analogy: ClpPresolve handles QP via the same action list
+    # with substitutions disabled)
+    is_qp = model.quadratic_objective is not None
     presolved = None
     pinfo = None
     work = model
@@ -692,6 +763,11 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
             scaled.load_problem(A, cl, cu, obj, rl, ru)
             scaled.objective_offset = work.objective_offset
             scaled.optimization_direction = work.optimization_direction
+            if work.quadratic_objective is not None:
+                import scipy.sparse as sp
+
+                C = sp.diags(factors.col)
+                scaled.quadratic_objective = (C @ work.quadratic_objective @ C).tocsc()
             unscaled_work = work
             work = scaled
 
@@ -710,10 +786,13 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
             # crossover: finish with a simplex from the interior solution
             # (reference: ClpSolve.cpp:3585-3786 values-pass cleanup);
             # dual finish — the IPM's duals are near-feasible
+            # (on a QP this LP simplex ignores Q and lands on a vertex, as
+            # the JAX package's crossover does: ROADMAP.md queue 3)
             sol = _solve_simplex(work, options, dual=True, warm=sol)
         elif (
             sol.status == ProblemStatus.STOPPED
             and sol.secondary_status == SecondaryStatus.FAILED_TO_CONVERGE
+            and work.quadratic_objective is None
         ):
             # the raw IPM cannot certify infeasible/unbounded; when it
             # fails to converge, adjudicate the STATUS with the simplex
@@ -727,6 +806,16 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
             ):
                 sol = adj
         sol.timings = {**ipm_stats, **(sol.timings or {})}
+    elif (
+        work.quadratic_objective is not None
+        and method in (SolveMethod.DUAL_SIMPLEX, SolveMethod.PRIMAL_SIMPLEX,
+                       SolveMethod.PRIMAL_IDIOT)
+    ):
+        # QP by simplex: reduced-gradient active-set primal
+        # (ClpSimplexNonlinear::primal analogue)
+        from .simplex.qp import qp_simplex_solve
+
+        sol = qp_simplex_solve(work, options)
     elif method in (SolveMethod.DUAL_SIMPLEX, SolveMethod.PRIMAL_SIMPLEX,
                     SolveMethod.PRIMAL_IDIOT):
         dual = method == SolveMethod.DUAL_SIMPLEX
@@ -788,6 +877,8 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
             sol.objective_value = (
                 float(work.objective @ x) + work.objective_offset
             )
+            if work.quadratic_objective is not None:
+                sol.objective_value += 0.5 * float(x @ (work.quadratic_objective @ x))
 
     work.solution = sol
 
@@ -799,7 +890,7 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
         sol = run_postsolve(model, pinfo, sol)
         # cleanup solve on the original model if needed (reference:
         # ClpSolve.cpp cleanup semantics, secondaryStatus 2/3/4)
-        if options.cleanup and sol.status == ProblemStatus.OPTIMAL:
+        if options.cleanup and sol.status == ProblemStatus.OPTIMAL and not is_qp:
             from .validate import check_kkt
 
             rep = check_kkt(model, x=sol.primal, y=sol.duals, tol=1e-6)

@@ -487,3 +487,87 @@ def test_idiot_descend_on_card_matches_cpu(cuda_device):
     xs = [crash._idiot_descend(*(torch.as_tensor(a, device=dev) for a in args), 0.5, 12, 25)
           .cpu().numpy() for dev in ("cpu", "cuda")]
     np.testing.assert_allclose(xs[1], xs[0], rtol=1e-9, atol=1e-9 * np.abs(xs[0]).max())
+
+
+def _port_random_qp(seed, n=8, mr=5, box=2.0):
+    """tests/test_qp.py's `_random_qp`, built as a port Model."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import Model
+
+    rng = np.random.default_rng(seed)
+    A = sp.csc_matrix(rng.standard_normal((mr, n)))
+    L = rng.standard_normal((n, n)) * 0.4
+    m = Model()
+    m.load_problem(A, col_lower=np.full(n, -box), col_upper=np.full(n, box),
+                   objective=rng.standard_normal(n),
+                   row_lower=np.full(mr, -3.0), row_upper=np.full(mr, 3.0))
+    m.quadratic_objective = sp.csc_matrix(L @ L.T + np.eye(n))
+    return m
+
+
+@pytest.mark.parametrize("method", ["PRIMAL_SIMPLEX", "BARRIER_NO_CROSS"])
+def test_qp_on_card_matches_cpu(cuda_device, method):
+    """The QP simplex (gated blocks of reduced-gradient iterations) and the
+    dense-Q barrier on the card: the CPU's status, iterations and objective
+    (f64 sums in another order)."""
+    from clp_tpu_torch import SolveOptions, check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = _port_random_qp(3)
+        out[dev] = initial_solve(model, SolveOptions(method=SolveMethod[method], device=dev))
+        assert check_kkt(model, x=out[dev].primal, y=out[dev].duals, tol=1e-6).ok
+    cpu, card = out["cpu"], out["cuda"]
+    assert cpu.status == card.status == ProblemStatus.OPTIMAL
+    assert card.iterations == cpu.iterations
+    assert abs(card.objective_value - cpu.objective_value) <= 1e-9 * (
+        1 + abs(cpu.objective_value))
+
+
+def test_separable_qp_barrier_on_card(cuda_device):
+    """A diagonal-Q staircase QP on the card: q_diag on the banded branch in
+    mixed32, the CPU's objective within 1e-8."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import SolveOptions, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.utils.generators import staircase_lp
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = staircase_lp(nblocks=16, bm=24, bn=36, seed=4)
+        rng = np.random.default_rng(0)
+        model.load_quadratic_objective(sp.diags(rng.uniform(0.1, 2.0, model.num_cols)).tocsc())
+        out[dev] = initial_solve(model, SolveOptions(method=SolveMethod.BARRIER_NO_CROSS,
+                                                     device=dev))
+    assert out["cpu"].status == out["cuda"].status == ProblemStatus.OPTIMAL
+    assert out["cuda"].timings["barrier_stats"]["branch"].endswith("q_diag")
+    assert out["cuda"].timings["barrier_stats"]["branch"].startswith("banded")
+    assert abs(out["cuda"].objective_value - out["cpu"].objective_value) <= 1e-8 * (
+        1 + abs(out["cpu"].objective_value))
+
+
+def test_dynamic_swaps_on_card_match_cpu(cuda_device):
+    """`dynamic_simplex_solve` with its slot swaps and the grow path on the
+    card: the CPU's rounds, swaps, working set and objective."""
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.dynamic import ExplicitColumnSource, dynamic_simplex_solve
+    from clp_tpu_torch.utils.generators import random_lp
+
+    model = random_lp(8, 120, seed=11, density=0.4)
+    model.col_lower = np.zeros(model.num_cols)
+    model.col_upper = np.full(model.num_cols, 50.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        src = ExplicitColumnSource(model.matrix, model.objective, model.col_lower,
+                                   model.col_upper)
+        out[dev] = dynamic_simplex_solve(model.row_lower, model.row_upper, src,
+                                         working_set=30, options=SolveOptions(device=dev))
+    (sc, ic), (sg, ig) = out["cpu"], out["cuda"]
+    assert sc.status == sg.status
+    assert ig["swaps"] > 0 and ig["working_set"] > 30
+    for k in ("rounds", "swaps", "working_set"):
+        assert ig[k] == ic[k], k
+    assert abs(sg.objective_value - sc.objective_value) <= 1e-9 * (1 + abs(sc.objective_value))

@@ -103,30 +103,31 @@ def test_fp32_precision_guard():
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
 
-def _piecewise(model):
-    model.set_piecewise_cost(0, [0.0, 1.0, 10.0], [1.0, 2.0])
-    return model
+# the modules each slice added, which the two tests above must cover
+SLICE_MODULES = ["clp_tpu_torch.simplex.qp", "clp_tpu_torch.dynamic",
+                 "clp_tpu_torch.colgen", "clp_tpu_torch.piecewise", "clp_tpu_torch.slp"]
 
 
-def _quadratic(model):
+@pytest.mark.parametrize("name", SLICE_MODULES)
+def test_slice_modules_are_checked(name):
+    assert name in list(_port_modules())
+    path = ROOT / (name.replace(".", "/") + ".py")
+    assert path in _port_files()
+
+
+@pytest.mark.parametrize("kw, match", [
+    ({"method": "DECOMPOSE"}, "decompose"),
+    ({"dual_pivot": "pesteepest"}, "pe"),
+    ({"price_mode": "ell"}, "ell"),
+    ({"shape_bucket": 64}, "shape_bucket"),
+    ({"method": "SPRINT", "devices": ["cpu", "cpu"]}, "multi-device"),
+    ({"method": "PRIMAL_SIMPLEX", "primal_pivot": "pe"}, "pe"),
+    ({"method": "BARRIER_NO_CROSS", "shape_bucket": 64}, "shape_bucket"),
+], ids=["decompose", "pesteepest", "ell", "shape_bucket", "sprint-devices", "primal-pe",
+        "qp-shape_bucket"])
+def test_unported_routes_raise(kw, match):
     import scipy.sparse as sp
 
-    model.load_quadratic_objective(sp.identity(model.num_cols, format="csc"))
-    return model
-
-
-@pytest.mark.parametrize("kw, edit, match", [
-    ({"method": "DECOMPOSE"}, None, "decompose"),
-    ({}, _piecewise, "piecewise"),
-    ({}, _quadratic, "solve-level QP"),
-    ({"dual_pivot": "pesteepest"}, None, "pe"),
-    ({"price_mode": "ell"}, None, "ell"),
-    ({"shape_bucket": 64}, None, "shape_bucket"),
-    ({"method": "SPRINT", "devices": ["cpu", "cpu"]}, None, "multi-device"),
-    ({"method": "PRIMAL_SIMPLEX", "primal_pivot": "pe"}, None, "pe"),
-], ids=["decompose", "piecewise", "quadratic", "pesteepest", "ell", "shape_bucket",
-        "sprint-devices", "primal-pe"])
-def test_unported_routes_raise(kw, edit, match):
     from clp_tpu_torch import SolveOptions, initial_solve
     from clp_tpu_torch.constants import SolveMethod
     from clp_tpu_torch.utils.generators import random_lp
@@ -134,8 +135,8 @@ def test_unported_routes_raise(kw, edit, match):
     kw = dict(kw)
     kw["method"] = SolveMethod[kw.get("method", "DUAL_SIMPLEX")]
     model = random_lp(6, 9, seed=2)
-    if edit is not None:
-        model = edit(model)
+    if kw["method"] == SolveMethod.BARRIER_NO_CROSS:
+        model.load_quadratic_objective(sp.identity(model.num_cols, format="csc"))
     with pytest.raises(NotImplementedError, match=match):
         initial_solve(model, SolveOptions(device="cpu", **kw))
 
