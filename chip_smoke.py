@@ -35,9 +35,17 @@ reformulated on the card, against HiGHS; SLP driven by torch.autograd,
 its LP sub-solves on the card; the dynamic matrix over an explicit
 universe against HiGHS, and one cutting-stock LP by column generation
 and by the dynamic matrix (`chip_smoke.py --nonlinear` runs this phase
-alone). Last, each in a fresh process (`chip_smoke.py --profile-pivots
-dense|block`), it profiles 200 pivots of the engine on the dense route
-and on the block route. Every phase that fails exits non-zero.
+alone). Then `batch_phase`: ELL pricing on the staircase and the Positive Edge
+rules, the batched dual simplex on bench.py's batches, a 10,240-scenario
+sweep and a batch of 16 LPs, the batched IPM (dense and banded), the
+batched QP simplex on a risk sweep, racing by seeds and by configurations,
+DECOMPOSE through AUTOMATIC and Dantzig-Wolfe, and the IIS, each route
+asserted and held to HiGHS or to its single solve; `chip_smoke.py --batch`
+runs it alone with PE, the batch of 16 and racing on the bench LP (the
+no-argument run cuts those to a 512-row LP for its time, `BP_CUTS`).
+Every phase that fails exits non-zero. The profiles run apart, each in a fresh process
+(`chip_smoke.py --profile-pivots dense|block|batch`): 200 pivots of the
+engine on the dense route and on the block route, and one wide batch.
 
 Prints a `{"kernels": [...]}` line, the card's name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. Imports nothing of the JAX
@@ -550,15 +558,21 @@ def window_lp(m: int, ncols: int, win: int, seed: int):
 
 def barrier_models():
     """The barrier phase's three LPs: (label, model factory, method, the
-    Newton branch expected, crossover?, KKT tolerance, HiGHS by its IPM?)."""
+    Newton branch expected, crossover?, KKT tolerance, HiGHS by its IPM?,
+    other SolveOptions)."""
     from clp_tpu_torch.utils.generators import random_lp
 
     return [
-        ("staircase", staircase_model, "BARRIER", "banded nb=256", True, 1e-6, False),
+        ("staircase", staircase_model, "BARRIER", "banded nb=256", True, 1e-6, False, {}),
         ("random 1024x1792", lambda: random_lp(1024, 1792, seed=0, density=0.05),
-         "BARRIER", "dense mixed32", True, 1e-6, True),
+         "BARRIER", "dense mixed32", True, 1e-6, True, {}),
+        # the card's f32 multifrontal IPM does not converge here (200
+        # iterations, 104.9 s, PERF.md §5), and the simplex adjudicates from
+        # scratch; its depth is cut to 20 IPM iterations for the script's
+        # time (PERF.md §4)
         ("window 4096x8192", lambda: window_lp(4096, 8192, 40, 3),
-         "AUTOMATIC", "device multifrontal", False, 1e-5, False),
+         "AUTOMATIC", "device multifrontal", False, 1e-5, False,
+         {"barrier_max_iterations": 20}),
     ]
 
 
@@ -700,7 +714,8 @@ def barrier_branch(dev, label, model, branch) -> dict:
     return info
 
 
-def barrier_path(dev, label, make, method, branch, crossover, kkt_tol, highs_ipm) -> dict:
+def barrier_path(dev, label, make, method, branch, crossover, kkt_tol, highs_ipm,
+                 kw) -> dict:
     """One barrier solve through the public entry point, with the launch
     counts of exactly this run; checked for status, KKT, the branch taken,
     the crossover's K1 and the objective against HiGHS."""
@@ -710,7 +725,7 @@ def barrier_path(dev, label, make, method, branch, crossover, kkt_tol, highs_ipm
     from clp_tpu_torch.ops.price import price_and_ratios, price_and_ratios_block
 
     model = make()
-    opts = SolveOptions(method=SolveMethod[method], device=dev.type)
+    opts = SolveOptions(method=SolveMethod[method], device=dev.type, **kw)
     price_and_ratios.launches = 0
     fused_pivot_update.launches = 0
     price_and_ratios_block.launches = 0
@@ -772,10 +787,10 @@ def barrier_phase(dev) -> list:
                              "expected DUAL_SIMPLEX")
     print(f"AUTOMATIC on the staircase ({dev.type}): {auto.name}", flush=True)
     runs = []
-    for label, make, method, branch, crossover, kkt_tol, highs_ipm in barrier_models():
+    for label, make, method, branch, crossover, kkt_tol, highs_ipm, kw in barrier_models():
         info = barrier_branch(dev, label, make(), branch)
         runs.append(info | barrier_path(dev, label, make, method, branch, crossover,
-                                        kkt_tol, highs_ipm))
+                                        kkt_tol, highs_ipm, kw))
     return runs
 
 
@@ -892,7 +907,11 @@ def auto_models():
         # K cut from 2000 to 500 to fit the phase's time: the GUB simplex
         # runs on the host, one Python pivot at a time (PERF.md §4)
         ("GUB K=500", lambda: gub_lp(500, 8, 64, 7), "GUB", False),
-        ("sparse 10240x20480", lambda: sparse_feasible_lp(10240, 20480, 163840, seed=0),
+        # cut from 10240 x 20480 (163,840 nonzeros; 100.9 s of solve and
+        # 19.9 s of HiGHS, PERF.md §4) for the script's time, keeping 16
+        # nonzeros a row and m > 8192, where AUTOMATIC skips the
+        # multifrontal probe and takes PDLP
+        ("sparse 8448x16896", lambda: sparse_feasible_lp(8448, 16896, 135168, seed=0),
          "PDLP", True),
     ]
 
@@ -922,13 +941,14 @@ class RouteSpy:
 
     def _wrap(self, name, fn):
         def spy(*args, **kw):
+            i = len(self.calls)
             self.calls.append((name, tuple(self.active), args, kw))
             self.active.append(name)
             try:
                 out = fn(*args, **kw)
             finally:
                 self.active.pop()
-            self.calls[-1] = self.calls[-1] + (out,)
+            self.calls[i] = self.calls[i] + (out,)  # nested calls came after it
             return out
         return spy
 
@@ -1052,11 +1072,13 @@ def auto_phase(dev) -> list:
 # sizes of the phase's models; a CPU rehearsal patches smaller ones in
 NL = {
     "portfolio_n": 2048,  # (b): assets of the factor-model Markowitz QP
-    "pw_lp": (256, 1024),  # (c): the LP under the piecewise costs
-    # (d): the separable objective's LP, cut from random_lp(128, 256):
-    # there the trust region needs ~80 LP passes of ~400 primal pivots
-    # each to reach 1e-4 of the QP barrier (PERF.md §4)
-    "slp_lp": (64, 128),
+    # (c): the LP under the piecewise costs, cut from (256, 1024) for the
+    # script's time (PERF.md §4)
+    "pw_lp": (128, 512),
+    # (d): the separable objective's LP, cut from random_lp(128, 256) and
+    # then from (64, 128) for the script's time (80 LP passes, 61-64 s on
+    # the card; PERF.md §4); at (48, 96) 60 passes reach 4e-7 on the CPU
+    "slp_lp": (48, 96),
     "dyn_lp": (192, 3072),  # (e): the wide AUTOMATIC LP, explicit universe
     # (e)'s starting working set: the 3m = 576 cheapest columns leave the
     # LP infeasible, and dynamic_simplex_solve, as the JAX package's, stops
@@ -1480,6 +1502,650 @@ def nonlinear_phase(dev) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# batch_phase: ELL and Positive Edge, scenario batching, racing, DECOMPOSE, IIS
+# ---------------------------------------------------------------------------
+
+# sizes of the phase's models, as `--batch` runs them; the no-argument
+# run cuts some (BP_CUTS), and a CPU rehearsal patches smaller ones in
+BP = {
+    "wide": (1024, 1792, 0.05),  # random_lp(1024, 1792, density=0.05): the bench LP
+    # the LPs of the PE dual (None: the staircase), the PE primal, the B = 16
+    # batch and racing
+    "pe_dual": None,
+    "pe_primal": (1024, 1792, 0.05),
+    "batch_lp": (1024, 1792, 0.05),
+    "race": (1024, 1792, 0.05),
+    # processes for the HiGHS references of the bench LPs, which solve
+    # while the card goes on with the phase
+    "highs_workers": 4,
+    "ell_auto": (24576, 65536),  # the ELL auto choice's probe (no solve)
+    "dual_b32": (32, 64, 96, 2),  # bench.py:208: B, m, n, generator seed
+    "dual_b256": (256, 32, 48, 4),  # bench.py:237
+    "sweep_batches": 40,  # 40 x 256 = 10,240 scenarios (BASELINE.json configs[4])
+    "wide_batch": 16,
+    "ipm_b64": (64, 48, 72, 0),  # bench.py:138
+    "stair_batch": 16,
+    "qp_n": 2048,
+    "qp_gammas": 8,
+    "two_stage": (64, 32, 24, 72),  # S, n1, m2, n2: 1537 x 4640 flat
+}
+# the no-argument run's cuts: at the sizes above its batch phase took
+# 669.9 s and the whole script 1202.3 s (PERF.md §4), past the 1200 s it
+# is allowed; PE's dual (86.5 s on the staircase), PE's primal (16,066
+# pivots, 154.2 s), the B = 16 batch (82.1 s) and racing (41.1 + 133.4 s)
+# run on random_lp(512, 896, density=0.05) there, which keeps the card's
+# f32 inverse and K1 on PE's dual
+MID = (512, 896, 0.05)
+BP_CUTS = {"pe_dual": MID, "pe_primal": MID, "batch_lp": MID, "race": MID}
+
+
+def perturbed(base, B: int, rng):
+    """bench.py's perturbed-RHS scenarios: every finite row bound moves
+    outwards by |U(0, 0.05)|."""
+    out = []
+    for _ in range(B):
+        m = base.copy()
+        shift = np.abs(rng.uniform(0, 0.05, m.num_rows))
+        m.row_lower = np.where(m.row_lower > -1e29, m.row_lower - shift, m.row_lower)
+        m.row_upper = np.where(m.row_upper < 1e29, m.row_upper + shift, m.row_upper)
+        out.append(m)
+    return out
+
+
+class BatchSpy(RouteSpy):
+    """The routes of batch_phase: the ELL forms, the PE signs, the batched
+    programs, the single-LP fallbacks and the decomposition."""
+
+    TARGETS = [("simplex.engine", "ell_forms"), ("simplex.engine", "rademacher"),
+               ("simplex.driver", "simplex_solve"), ("simplex.qp", "qp_simplex_solve"),
+               ("parallel.batch", "ipm_solve_batched"),
+               ("interior.mehrotra", "ipm_solve_batched"),
+               ("structure", "auto_decompose_solve"), ("decompose", "benders_solve"),
+               ("parallel.batch", "solve_batch_dual_simplex")]
+
+
+def timed(dev, fn):
+    """(result, wall s, peak device MiB, K1-K3 launches) of one call."""
+    zero_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20 if dev.type == "cuda" else None
+    return out, wall, peak, kernel_launches()
+
+
+def _mib(peak) -> str:
+    return "n/a" if peak is None else f"{peak:.1f} MiB"
+
+
+def agree(label, obj, ref) -> None:
+    if not abs(obj - ref) <= 1e-6 * (1 + abs(ref)):
+        raise AssertionError(f"{label}: objective {obj!r} vs HiGHS {ref!r}")
+
+
+def single_path(dev, label, model, opts, spy_name, ref, want_k1, refs=None) -> dict:
+    """One LP through initial_solve with an engine option of this slice;
+    `spy_name` must run (ell_forms / rademacher), K1 as `want_k1` says. With
+    `ref` None the HiGHS check goes to `refs` (HighsRefs)."""
+    from clp_tpu_torch import check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus
+
+    spy = BatchSpy()
+    try:
+        sol, wall, peak, launches = timed(dev, lambda: initial_solve(model, opts))
+    finally:
+        spy.close()
+    if not spy.entered(spy_name):
+        raise AssertionError(f"{label}: {spy_name} never ran")
+    # K1 launches only on the card (on the CPU the plain PRICE runs)
+    if ((launches["K1"] > 0) != (want_k1 and dev.type == "cuda")
+            or launches["K2"] or launches["K3"]):
+        raise AssertionError(f"{label}: wrong kernels launched: {launches}")
+    if sol.status != ProblemStatus.OPTIMAL:
+        raise AssertionError(f"{label}: status {sol.status!r}")
+    rep = check_kkt(model, x=sol.primal, y=sol.duals, tol=1e-6)
+    if not rep.ok:
+        raise AssertionError(f"{label}: KKT check at 1e-6 failed: {rep}")
+    if ref is None:
+        refs.add(label, model, sol.objective_value)
+    else:
+        agree(label, sol.objective_value, ref)
+    print(f"batch phase [{label}: {model.num_rows} x {model.num_cols}]: OPTIMAL "
+          f"obj={sol.objective_value!r} (HiGHS {'checked below' if ref is None else ref}), "
+          f"KKT ok; {spy_name} calls="
+          f"{len(spy.entered(spy_name))}, iterations={sol.iterations}, wall={wall:.3f} s, "
+          f"pivots/s={sol.iterations / wall:.1f}, peak {_mib(peak)}, launches={launches}",
+          flush=True)
+    return {"label": label, "wall": wall, "launches": launches}
+
+
+def ell_pe_paths(dev, stair_ref: float, refs) -> list:
+    """ELL on the staircase, the ELL auto choice on a sparse LP above the
+    6 GB line, PE's dual (K1 on) on the staircase or `BP["pe_dual"]`, and
+    PE's primal on `BP["pe_primal"]`."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import Model, SolveOptions
+    from clp_tpu_torch.constants import SolveMethod
+    from clp_tpu_torch.simplex import driver
+    from clp_tpu_torch.utils.generators import random_lp
+
+    m, n = BP["ell_auto"]
+    rng = np.random.default_rng(0)
+    big = Model()
+    big.load_problem(sp.csc_matrix((np.ones(3 * n), (rng.integers(0, m, 3 * n),
+                                                     np.repeat(np.arange(n), 3))),
+                                   shape=(m, n)),
+                     np.zeros(n), np.ones(n), np.ones(n), np.full(m, -np.inf),
+                     np.full(m, 10.0))
+    if not driver.ell_auto(big, m, m + n):
+        raise AssertionError("ELL: the auto choice declined the sparse LP above 6 GB")
+    kc, kr = driver.ell_widths(big)
+    print(f"batch phase [ELL auto choice]: {m} x {n}, {big.num_elements} nonzeros "
+          f"(dense f32 standard form {4 * m * (m + n) / 2**30:.2f} GiB): ell, kc={kc}, "
+          f"kr={kr}; the solve needs a {8 * m * (m + n) / 2**30:.1f} GiB dense f64 "
+          f"form on the host and is left out", flush=True)
+    stair = staircase_model()
+    kc, kr = driver.ell_widths(stair)
+    dual = SolveMethod.DUAL_SIMPLEX
+    pe_dual = BP["pe_dual"]
+    pm, pn, pd = BP["pe_primal"]
+    return [single_path(dev, f"ELL staircase kc={kc} kr={kr}", stair,
+                        SolveOptions(method=dual, device=dev.type, price_mode="ell"),
+                        "ell_forms", stair_ref, False),
+            single_path(dev, "PE dual staircase", stair,
+                        SolveOptions(method=dual, device=dev.type, dual_pivot="pesteepest"),
+                        "rademacher", stair_ref, True) if pe_dual is None else
+            single_path(dev, "PE dual random", random_lp(pe_dual[0], pe_dual[1],
+                                                         density=pe_dual[2]),
+                        SolveOptions(method=dual, device=dev.type, dual_pivot="pesteepest"),
+                        "rademacher", None, True, refs),
+            single_path(dev, "PE primal random", random_lp(pm, pn, density=pd),
+                        SolveOptions(method=SolveMethod.PRIMAL_SIMPLEX, device=dev.type,
+                                     primal_pivot="pe"),
+                        "rademacher", None, False, refs)]
+
+
+def _model_key(model) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for a in (model.matrix.data, model.matrix.indices, model.row_lower, model.row_upper,
+              model.col_lower, model.col_upper, model.objective):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+class HighsRefs:
+    """The HiGHS checks of the bench-LP paths (HiGHS's IPM takes 10-60 s on
+    each): every distinct LP's reference solves in one of
+    `BP["highs_workers"]` spawned processes from the moment it is added,
+    while the card goes on with the phase; `check` holds every objective
+    to its reference within 1e-6 * (1 + |obj|). `close` ends the pool."""
+
+    def __init__(self):
+        import concurrent.futures as cf
+        import multiprocessing
+
+        self.pool = cf.ProcessPoolExecutor(BP["highs_workers"],
+                                           mp_context=multiprocessing.get_context("spawn"))
+        self.futures: dict = {}
+        self.checks: list = []
+
+    def add(self, label, model, obj) -> None:
+        key = _model_key(model)
+        if key not in self.futures:
+            self.futures[key] = self.pool.submit(highs_objective, model, True)
+        self.checks.append((label, key, obj))
+
+    def check(self) -> None:
+        t0 = time.perf_counter()
+        for label, key, obj in self.checks:
+            agree(label, obj, self.futures[key].result())
+        print(f"batch phase [HiGHS references of the bench-LP paths]: {len(self.checks)} "
+              f"objectives agree within 1e-6 * (1 + |obj|) ({len(self.futures)} HiGHS IPM "
+              f"solves in {BP['highs_workers']} background processes; "
+              f"{time.perf_counter() - t0:.1f} s waited at the end)", flush=True)
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def batch_dual(dev, label, models, check_lanes, refs=None) -> dict:
+    """One solve_batch_dual_simplex: every lane OPTIMAL, the lanes
+    `check_lanes` against HiGHS (or, given `refs`, every lane there), and
+    no lane through the single driver."""
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.parallel.batch import solve_batch_dual_simplex
+
+    opts = SolveOptions(method=SolveMethod.DUAL_SIMPLEX, device=dev.type)
+    opts.presolve.enabled = False
+    spy = BatchSpy()
+    try:
+        sols, wall, peak, launches = timed(dev, lambda: solve_batch_dual_simplex(models, opts))
+    finally:
+        spy.close()
+    bad = [i for i, s in enumerate(sols) if s.status != ProblemStatus.OPTIMAL]
+    if bad:
+        raise AssertionError(f"{label}: lanes {bad[:10]} not OPTIMAL")
+    if spy.entered("simplex_solve"):
+        raise AssertionError(f"{label}: {len(spy.entered('simplex_solve'))} lanes fell back "
+                             "to the single-LP driver")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: a kernel launched under the batch: {launches}")
+    for i in check_lanes:
+        agree(f"{label} lane {i}", sols[i].objective_value, highs_objective(models[i]))
+    if refs is not None:
+        for i, (m, s) in enumerate(zip(models, sols)):
+            refs.add(f"{label} lane {i}", m, s.objective_value)
+    pivots = sum(s.iterations for s in sols)
+    return {"label": label, "wall": wall, "peak": peak, "launches": launches,
+            "B": len(models), "pivots": pivots,
+            "max_pivots": max(s.iterations for s in sols),
+            "inverse": sols[0].timings["factorization_stats"]["inverse_dtype"]}
+
+
+def print_batch(r, shape) -> None:
+    print(f"batch phase [batched dual {r['label']}: B={r['B']} x {shape}, "
+          f"{r['inverse']} inverse]: all lanes OPTIMAL, checked lanes agree with HiGHS; "
+          f"wall={r['wall']:.3f} s, {r['B'] / r['wall']:.1f} instances/s, "
+          f"{r['pivots']} lane pivots ({r['pivots'] / r['wall']:.1f} lane pivots/s, "
+          f"slowest lane {r['max_pivots']}), peak {_mib(r['peak'])}", flush=True)
+
+
+def batched_dual_paths(dev, refs) -> list:
+    """bench.py:188-276's batches at full size, the 10,240-scenario sweep and
+    B = 16 perturbed copies of `BP["batch_lp"]` (f32 inverse, blocks of 8)."""
+    from clp_tpu_torch.utils.generators import random_lp
+
+    rng = np.random.default_rng(3)
+    runs = []
+    B, m, n, seed = BP["dual_b32"]
+    r = batch_dual(dev, "b32", perturbed(random_lp(m, n, seed=seed), B, rng), (0, B - 1))
+    print_batch(r, f"{m} x {n}")
+    runs.append(r)
+    B, m, n, seed = BP["dual_b256"]
+    base = random_lp(m, n, seed=seed)
+    r = batch_dual(dev, "b256", perturbed(base, B, rng), (0, B - 1))
+    print_batch(r, f"{m} x {n}")
+    runs.append(r)
+    # the sweep: fresh batches of 256 head to tail, wall with each batch's
+    # model build and stacking
+    t0 = time.perf_counter()
+    done = lanes = pivots = 0
+    for k in range(BP["sweep_batches"]):
+        r = batch_dual(dev, f"sweep {k}", perturbed(base, B, rng), (0, B - 1))
+        done, lanes, pivots = done + 1, lanes + r["B"], pivots + r["pivots"]
+    wall = time.perf_counter() - t0
+    print(f"batch phase [10,240-scenario sweep: {done} of {BP['sweep_batches']} batches of "
+          f"{B} x {m} x {n}]: {lanes} scenarios all OPTIMAL, first and last lane of each "
+          f"batch agree with HiGHS; wall={wall:.3f} s (HiGHS checks included), "
+          f"{lanes / wall:.1f} scenarios/s, {pivots} lane pivots", flush=True)
+    runs.append({"label": "sweep", "wall": wall, "launches": r["launches"],
+                 "batches": done, "scenarios": lanes})
+    wm, wn, wd = BP["batch_lp"]
+    models = perturbed(random_lp(wm, wn, density=wd), BP["wide_batch"], rng)
+    r = batch_dual(dev, "b16", models, (), refs)
+    print_batch(r, f"{wm} x {wn}")
+    runs.append(r)
+    return runs
+
+
+def batched_ipm_paths(dev) -> list:
+    """solve_batch on bench.py:132-186's B = 64 batch and on perturbed-RHS
+    copies of the staircase (the banded plan of the union pattern)."""
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.constants import ProblemStatus
+    from clp_tpu_torch.solve import solve_batch
+    from clp_tpu_torch.utils.generators import random_lp
+
+    runs = []
+    B, m, n, seed = BP["ipm_b64"]
+    specs = [("b64", perturbed(random_lp(m, n, seed=seed), B, np.random.default_rng(1)),
+              False),
+             ("staircase", perturbed(staircase_model(), BP["stair_batch"],
+                                     np.random.default_rng(5)), True)]
+    for label, models, banded in specs:
+        spy = BatchSpy()
+        try:
+            sols, wall, peak, launches = timed(
+                dev, lambda: solve_batch(models, SolveOptions(device=dev.type)))
+        finally:
+            spy.close()
+        calls = spy.entered("ipm_solve_batched")
+        nb = calls[0][2][1].band_nb if calls else None
+        if len(calls) != 1 or (nb > 0) != banded:
+            raise AssertionError(f"batched IPM [{label}]: ipm_solve_batched calls "
+                                 f"{len(calls)}, band_nb={nb}")
+        bad = [i for i, s in enumerate(sols) if s.status != ProblemStatus.OPTIMAL]
+        if bad:
+            raise AssertionError(f"batched IPM [{label}]: lanes {bad[:10]} did not converge")
+        for i in (0, len(models) - 1):
+            agree(f"batched IPM [{label}] lane {i}", sols[i].objective_value,
+                  highs_objective(models[i], ipm=True))
+        its = [s.iterations for s in sols]
+        mdl = models[0]
+        print(f"batch phase [batched IPM {label}: B={len(models)} x {mdl.num_rows} x "
+              f"{mdl.num_cols}, {'banded nb=' + str(nb) if banded else 'dense'}]: all lanes "
+              f"converged, lanes 0 and B-1 agree with HiGHS; IPM iterations "
+              f"{min(its)}-{max(its)}; wall={wall:.3f} s, {len(models) / wall:.1f} "
+              f"instances/s, peak {_mib(peak)}", flush=True)
+        runs.append({"label": f"ipm {label}", "wall": wall, "launches": launches})
+    return runs
+
+
+def batched_qp_path(dev) -> dict:
+    """tests/test_batch.py:115's risk sweep at n = 2048 assets: each lane
+    within 1e-6 of the single QP simplex, the frontier monotone."""
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.constants import ProblemStatus
+    from clp_tpu_torch.parallel.batch import solve_batch_qp_simplex
+    from clp_tpu_torch.simplex.qp import qp_simplex_solve
+
+    n = BP["qp_n"]
+    gammas = np.linspace(0.5, 8.0, BP["qp_gammas"])
+    models = [portfolio_qp(n, gamma=g) for g in gammas]
+    opts = SolveOptions(device=dev.type)
+    spy = BatchSpy()
+    try:
+        sols, wall, peak, launches = timed(
+            dev, lambda: solve_batch_qp_simplex([m.copy() for m in models], opts))
+    finally:
+        spy.close()
+    if spy.entered("qp_simplex_solve"):
+        raise AssertionError("batched QP: a lane fell back to the single QP simplex")
+    t0 = time.perf_counter()
+    refs = [qp_simplex_solve(m.copy(), opts) for m in models]
+    single = time.perf_counter() - t0
+    for g, s, r in zip(gammas, sols, refs):
+        if not (s.status == r.status == ProblemStatus.OPTIMAL):
+            raise AssertionError(f"batched QP gamma={g}: {s.status!r} / {r.status!r}")
+        if not abs(s.objective_value - r.objective_value) <= 1e-6 * (1 + abs(r.objective_value)):
+            raise AssertionError(f"batched QP gamma={g}: {s.objective_value!r} vs single "
+                                 f"{r.objective_value!r}")
+    risks = [float(s.primal @ (m.quadratic_objective @ s.primal)) / g
+             for s, m, g in zip(sols, models, gammas)]
+    if not all(risks[i + 1] <= risks[i] + 1e-9 for i in range(len(risks) - 1)):
+        raise AssertionError(f"batched QP: the frontier is not monotone: {risks}")
+    print(f"batch phase [batched QP simplex: {len(models)} gammas x {n} assets]: every "
+          f"lane OPTIMAL within 1e-6 of its single QP simplex, frontier monotone; "
+          f"iterations {[s.iterations for s in sols]}; wall={wall:.3f} s "
+          f"({len(models) / wall:.2f} instances/s) against {single:.3f} s for the "
+          f"{len(models)} single solves; peak {_mib(peak)}", flush=True)
+    return {"label": "qp", "wall": wall, "launches": launches}
+
+
+def racing_paths(dev, refs) -> list:
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.parallel.racing import race_seeds, racing_solve
+    from clp_tpu_torch.utils.generators import random_lp
+
+    wm, wn, wd = BP["race"]
+    opts = SolveOptions(method=SolveMethod.DUAL_SIMPLEX, device=dev.type)
+    runs = []
+    for label, fn in (("race_seeds k=8", lambda mdl: race_seeds(mdl, opts, k=8)),
+                      ("racing_solve, default configs",
+                       lambda mdl: racing_solve(mdl, devices=[dev.type]))):
+        model = random_lp(wm, wn, density=wd)
+        sol, wall, peak, launches = timed(dev, lambda: fn(model))
+        if sol.status != ProblemStatus.OPTIMAL:
+            raise AssertionError(f"{label}: status {sol.status!r}")
+        refs.add(label, model, sol.objective_value)
+        print(f"batch phase [{label}: {wm} x {wn}]: OPTIMAL obj={sol.objective_value!r} "
+              f"(HiGHS checked below), winner {getattr(sol, 'winning_config', None)}, "
+              f"iterations={sol.iterations}, wall={wall:.3f} s, peak {_mib(peak)}, "
+              f"launches={launches}", flush=True)
+        runs.append({"label": label, "wall": wall, "launches": launches})
+    return runs
+
+
+def two_stage_lp(S, n1, m2, n2, seed=0):
+    """tests/test_decompose.py's `_two_stage`: a random two-stage LP with
+    complete recourse (W holds +-I under a penalty), as a port TwoStageLP."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import INF
+    from clp_tpu_torch.decompose import TwoStageLP
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(1.0, 2.0, n1)
+    T = rng.uniform(-0.5, 0.5, (S, m2, n1))
+    W_core = rng.uniform(-1, 1, (S, m2, n2 - 2 * m2))
+    eye = np.broadcast_to(np.eye(m2), (S, m2, m2))
+    W = np.concatenate([W_core, eye, -eye], axis=2)
+    h = rng.uniform(0.0, 1.0, (S, m2))
+    q = np.concatenate([rng.uniform(0.5, 1.5, (S, n2 - 2 * m2)),
+                        np.full((S, 2 * m2), 5.0)], axis=1)
+    return TwoStageLP(c=c, A=sp.csc_matrix(np.ones((1, n1))), row_lower=np.array([-INF]),
+                      row_upper=np.array([10.0]), col_lower=np.zeros(n1),
+                      col_upper=np.full(n1, 3.0), T=T, W=W, h=h, q=q,
+                      prob=np.full(S, 1.0 / S))
+
+
+def dw_blocks():
+    """tests/test_decompose.py's Dantzig-Wolfe recipe: two bounded 3 x 6
+    blocks and one linking capacity row; also the direct model."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import INF, Model
+
+    rng = np.random.default_rng(3)
+
+    def block():
+        m = Model()
+        m.load_problem(sp.csc_matrix(rng.uniform(0, 1, (3, 6))), np.zeros(6), np.ones(6),
+                       rng.uniform(-2, -0.5, 6), np.full(3, -INF), rng.uniform(2.0, 3.0, 3))
+        return m
+
+    b1, b2 = block(), block()
+    L = sp.csc_matrix(np.ones((1, 6)))
+    direct = Model()
+    direct.load_problem(
+        sp.vstack([sp.hstack([L, L]), sp.hstack([b1.matrix, sp.csc_matrix((3, 6))]),
+                   sp.hstack([sp.csc_matrix((3, 6)), b2.matrix])], format="csc"),
+        np.zeros(12), np.ones(12), np.concatenate([b1.objective, b2.objective]),
+        np.concatenate([[-INF], b1.row_lower, b2.row_lower]),
+        np.concatenate([[4.0], b1.row_upper, b2.row_upper]))
+    return [b1, b2], [L, L], np.array([-INF]), np.array([4.0]), direct
+
+
+def decompose_paths(dev) -> list:
+    from clp_tpu_torch import SolveOptions, check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus
+    from clp_tpu_torch.decompose import dantzig_wolfe, extensive_form
+
+    flat = extensive_form(two_stage_lp(*BP["two_stage"]))
+    spy = BatchSpy()
+    try:
+        sol, wall, peak, launches = timed(dev, lambda: initial_solve(
+            flat, SolveOptions(device=dev.type)))
+    finally:
+        spy.close()
+    if not (spy.entered("auto_decompose_solve") and spy.entered("benders_solve")):
+        raise AssertionError("DECOMPOSE: AUTOMATIC did not run auto_decompose_solve and "
+                             "benders_solve")
+    if sol.status != ProblemStatus.OPTIMAL:
+        raise AssertionError(f"DECOMPOSE: status {sol.status!r}")
+    rep = check_kkt(flat, x=sol.primal, y=sol.duals, tol=1e-6)
+    if not rep.ok:
+        raise AssertionError(f"DECOMPOSE: KKT check at 1e-6 failed: {rep}")
+    agree("DECOMPOSE", sol.objective_value, highs_objective(flat))
+    bs = spy.entered("benders_solve")[0][-1][0]
+    print(f"batch phase [DECOMPOSE: flat {flat.num_rows} x {flat.num_cols}, AUTOMATIC -> "
+          f"auto_decompose_solve -> benders_solve]: OPTIMAL obj={sol.objective_value!r}, "
+          f"KKT ok, agrees with HiGHS on the extensive form; Benders iterations="
+          f"{bs.iterations}, batched IPM calls={len(spy.entered('ipm_solve_batched'))}, "
+          f"finish pivots={sol.iterations}; wall={wall:.3f} s, peak {_mib(peak)}", flush=True)
+    runs = [{"label": "decompose", "wall": wall, "launches": launches}]
+    blocks, links, lo, up, direct = dw_blocks()
+    dsol, wall, peak, launches = timed(dev, lambda: dantzig_wolfe(
+        blocks, links, lo, up, SolveOptions(device=dev.type)))
+    if dsol.status != ProblemStatus.OPTIMAL:
+        raise AssertionError(f"Dantzig-Wolfe: status {dsol.status!r}")
+    agree("Dantzig-Wolfe", dsol.objective_value, highs_objective(direct))
+    print(f"batch phase [Dantzig-Wolfe: 2 blocks of 3 x 6 + 1 linking row]: OPTIMAL "
+          f"obj={dsol.objective_value!r}, agrees with HiGHS on the direct model; "
+          f"master rounds={dsol.iterations}, wall={wall:.3f} s", flush=True)
+    runs.append({"label": "dantzig-wolfe", "wall": wall, "launches": launches})
+    return runs
+
+
+def iis_path(dev) -> dict:
+    """find_iis(batch=True) on the wide LP with tests/test_analysis.py:107's
+    three conflicting rows over two of its columns appended."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import INF, SolveOptions
+    from clp_tpu_torch.analysis import find_iis
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.utils.generators import random_lp
+
+    wm, wn, wd = BP["wide"]
+    model = random_lp(wm, wn, density=wd)
+    rows = np.zeros((3, wn))
+    rows[0, :2] = 1.0  # x0 + x1 >= 4
+    rows[1, 0] = 1.0  # x0 <= 1
+    rows[2, 1] = 1.0  # x1 <= 1
+    model.add_rows(sp.csc_matrix(rows), lower=[4.0, -INF, -INF], upper=[INF, 1.0, 1.0])
+    want = [wm, wm + 1, wm + 2]
+    # the f64 inverse: the Farkas ray of the f32 one carries f32 noise above
+    # find_iis's 1e-9 support threshold, which makes every row a candidate
+    # (1027 lanes of 1027 x 2819: the card ran out of memory, PERF.md §4)
+    opts = SolveOptions(method=SolveMethod.DUAL_SIMPLEX, device=dev.type,
+                        inverse_dtype="float64")
+    spy = BatchSpy()
+    try:
+        iis, wall, peak, launches = timed(dev, lambda: find_iis(model, opts, batch=True))
+    finally:
+        spy.close()
+    if sorted(iis) != want:
+        raise AssertionError(f"IIS: found rows {iis}, expected {want}")
+    batches = [c[2][0] for c in spy.entered("solve_batch_dual_simplex")]
+    if not batches:
+        raise AssertionError("IIS: the deletion filter never ran a batch")
+    # irreducible as tests/test_analysis.py checks it: the IIS alone is
+    # infeasible (find_iis verified it) and loses that with any row freed
+    opts.presolve.enabled = False
+    others = sorted(set(range(model.num_rows)) - set(iis))
+    for r in iis:
+        t = model.copy()
+        t.row_lower, t.row_upper = t.row_lower.copy(), t.row_upper.copy()
+        t.row_lower[others + [r]], t.row_upper[others + [r]] = -INF, INF
+        st = t.initial_solve(opts).status
+        if st != ProblemStatus.OPTIMAL:
+            raise AssertionError(f"IIS: with row {r} freed the rest is {st!r}, not OPTIMAL")
+    print(f"batch phase [IIS: {model.num_rows} x {model.num_cols}]: rows {iis} found; "
+          f"freeing any one restores feasibility; deletion-filter batches "
+          f"{[len(b) for b in batches]} of {batches[0][0].num_rows}-row LPs; "
+          f"wall={wall:.3f} s, peak {_mib(peak)}", flush=True)
+    return {"label": "iis", "wall": wall, "launches": launches}
+
+
+def batch_phase(dev, stair_ref: float) -> list:
+    """ELL and PE (`ell_pe_paths`), the batched dual simplex (bench.py's
+    batches, the 10,240-scenario sweep, a batch of 16 LPs), the
+    batched IPM, the batched QP simplex, racing, DECOMPOSE and the IIS. Each
+    model prints its route (asserted), counts, wall, instances/s where
+    batched and peak device memory, and is held to HiGHS or to its single
+    solve. K1 launches only on the PE dual route."""
+    t_phase = time.perf_counter()
+    refs = HighsRefs()
+    try:
+        runs = ell_pe_paths(dev, stair_ref, refs)
+        runs += batched_dual_paths(dev, refs)
+        runs += batched_ipm_paths(dev)
+        runs.append(batched_qp_path(dev))
+        runs += racing_paths(dev, refs)
+        runs += decompose_paths(dev)
+        runs.append(iis_path(dev))
+        refs.check()
+    finally:
+        refs.close()
+    print(f"batch phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs
+
+
+def device_profile(prof, n: int, route: str):
+    """(device busy us, kernel events, top 10 (name, us)) of a profiled
+    window of n pivots; every kernel's time and launches per pivot go to
+    build/profiles/profile_<route>.txt."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of kernel intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        rec = by_name.setdefault(e.name, [0.0, 0])
+        rec[0] += e.time_range.elapsed_us()
+        rec[1] += 1
+    table = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    PROFILE_DIR.mkdir(parents=True, exist_ok=True)
+    (PROFILE_DIR / f"profile_{route}.txt").write_text("".join(
+        f"{t / n:10.2f} us/pivot {c / n:7.2f} launches/pivot  {name}\n"
+        for name, (t, c) in table))
+    return busy, kernels, [(name, t) for name, (t, _) in table[:10]]
+
+
+def profile_batch(dev, pivots: int = 200) -> None:
+    """Where a batched pivot's time goes: the wide batch of batch_phase (B
+    perturbed-RHS copies of the bench LP, f32 inverse, blocks of 8 gated
+    pivots per host read), two windows of up to `pivots` batched pivots
+    from a fresh refactorization, the second under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.parallel import batch as pb
+    from clp_tpu_torch.utils.generators import random_lp
+
+    wm, wn, wd = BP["wide"]
+    models = perturbed(random_lp(wm, wn, density=wd), BP["wide_batch"],
+                       np.random.default_rng(3))
+    lp, _ = pb.stack_models_simplex(models, dev)
+    opts = pb._engine_options(SolveOptions(device=dev.type), wm, dev.type == "cuda")
+    E = pb._Lanes(pb._lpd(lp), opts)
+    S = pb._bprep(E, E.initial_state())
+    B = len(models)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+
+    def window(S, n):
+        it0 = S["iterations"].clone()
+        t0 = time.perf_counter()
+        S = pb._chunk(S, live, E.dual_step, n, opts.inner_unroll, opts.max_iterations)
+        torch.cuda.synchronize()
+        return S, int((S["iterations"] - it0).sum()), time.perf_counter() - t0
+
+    S, _, _ = window(S, 16)  # warm-up
+    S = E.recompute(S)
+    S, lanes_plain, wall_plain = window(S, pivots)
+    S = E.recompute(S)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        S, lanes, wall = window(S, pivots)
+    n = pivots  # batched steps of the window (every lane gated alike)
+    busy, kernels, top = device_profile(prof, n, "batch")
+    print(f"pivot profile [batch] (B={B} x {wm} x {wn}, {opts.inverse_dtype} inverse, "
+          f"blocks of {opts.inner_unroll}; {pivots} batched pivots a window): wall "
+          f"{1e3 * wall_plain / n:.3f} ms a batched pivot ({lanes_plain} lane pivots, "
+          f"{lanes_plain / wall_plain:.1f}/s), {1e3 * wall / n:.3f} ms under the profiler; "
+          f"device busy {1e-3 * busy / n:.3f} ms a batched pivot "
+          f"({100 * busy / (1e6 * wall):.1f}% of the profiled wall, idle "
+          f"{100 - 100 * busy / (1e6 * wall):.1f}%), {len(kernels) / n:.1f} kernel launches "
+          f"a batched pivot; top device time a batched pivot (us): "
+          + "; ".join(f"{name[:80]} = {t / n:.1f}" for name, t in top)
+          + " (every kernel: build/profiles/profile_batch.txt)", flush=True)
+
+
 def profile_pivots(dev, route: str, pivots: int = 200) -> None:
     """Where a pivot's time goes on the card.
 
@@ -1494,7 +2160,6 @@ def profile_pivots(dev, route: str, pivots: int = 200) -> None:
     """
     import dataclasses
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from clp_tpu_torch.forms import to_standard_form
@@ -1541,24 +2206,7 @@ def profile_pivots(dev, route: str, pivots: int = 200) -> None:
         st, n, wall = chunk(st, pivots)
     if n_plain <= 0 or n <= 0:
         raise AssertionError(f"profile windows made {n_plain} and {n} pivots")
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # union of kernel intervals, in us
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        rec = by_name.setdefault(e.name, [0.0, 0])
-        rec[0] += e.time_range.elapsed_us()
-        rec[1] += 1
-    table = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    PROFILE_DIR.mkdir(parents=True, exist_ok=True)
-    (PROFILE_DIR / f"profile_{route}.txt").write_text("".join(
-        f"{t / n:10.2f} us/pivot {c / n:7.2f} launches/pivot  {name}\n"
-        for name, (t, c) in table))
-    top = [(name, t) for name, (t, _) in table[:10]]
+    busy, kernels, top = device_profile(prof, n, route)
     wall_us = 1e6 * wall / n
     pricer = "K3, price_mode=block" if route == "block" else "K1"
     print(f"pivot profile [{route}] (unscaled staircase, f32 inverse + {pricer} + BFRT, "
@@ -1584,6 +2232,12 @@ def main() -> int:
     from clp_tpu_torch.ops import build
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s since the start] {phase} done",
+              flush=True)
+
     smi = nvidia_smi()
     nvcc = subprocess.run([build.nvcc_path(), "--version"], check=True,
                           capture_output=True, text=True).stdout.strip().splitlines()[-1]
@@ -1604,6 +2258,7 @@ def main() -> int:
     k2["above_limit"] = [check_k2_above_limit(dev, flush, m) for m in (14465, 16384)]
     k3 = check_k3(dev, flush, *staircase_blocks(dev, G32))
     del flush, G32
+    mark("kernel phase")
 
     run_k1 = main_path("K1", False)
     run_k2 = main_path("K1+K2", True)
@@ -1619,22 +2274,25 @@ def main() -> int:
                                  f"vs HiGHS {highs_obj!r}")
     print(f"HiGHS objective {highs_obj!r}: all three main-path runs agree within "
           f"1e-6 * (1 + |obj|)", flush=True)
+    mark("main paths")
     barrier_phase(dev)
+    mark("barrier phase")
     auto_runs = auto_phase(dev)
+    mark("auto phase")
     k1["auto_phase_launches"] = sum(r["launches"]["K1"] for r in auto_runs)
     nl_runs = nonlinear_phase(dev)
+    mark("nonlinear phase")
     k1["nonlinear_phase_launches"] = sum(r["launches"]["K1"] for r in nl_runs
                                          if "launches" in r)
-    # each in a process of its own: torch.profiler leaves state behind that
-    # slows the host side of its process, and the same pivots ran slower
-    # after the solves above than in a fresh process
-    for route in ("dense", "block"):
-        subprocess.run([sys.executable, __file__, "--profile-pivots", route],
-                       check=True, timeout=600)
+    BP.update(BP_CUTS)
+    b_runs = batch_phase(dev, highs_obj)
+    mark("batch phase")
+    for rec, name in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
+        rec["batch_phase_launches"] = sum(r["launches"][name] for r in b_runs)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     extra = ("launch_floor_ms", "above_limit", "auto_phase_launches",
-             "nonlinear_phase_launches")
+             "nonlinear_phase_launches", "batch_phase_launches")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys} | {k: v for k, v in rec.items() if k in extra}
         for rec in (k1, k2, k3)]}))
@@ -1662,21 +2320,47 @@ def nonlinear_main() -> int:
     return 0
 
 
-def profile_main(route: str) -> int:
-    """`chip_smoke.py --profile-pivots dense|block`: one profile phase alone."""
+def batch_main() -> int:
+    """`chip_smoke.py --batch`: the kernels' build and `batch_phase` alone at
+    BP's sizes, without BP_CUTS (the contract run is the one with no
+    arguments)."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    profile_pivots(torch.device("cuda"), route)
+    from clp_tpu_torch.ops import build
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    build.build_all(["price", "pivot", "price_block"])
+    batch_phase(torch.device("cuda"), highs_objective(staircase_model()))
+    return 0
+
+
+def profile_main(route: str) -> int:
+    """`chip_smoke.py --profile-pivots dense|block|batch`: one profile alone,
+    in a fresh process (torch.profiler leaves state behind that slows the
+    host side of its process, and the same pivots ran slower after the
+    solves of the contract run than in a fresh process)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if route == "batch":
+        profile_batch(torch.device("cuda"))
+    else:
+        profile_pivots(torch.device("cuda"), route)
     return 0
 
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    if len(args) == 2 and args[0] == "--profile-pivots" and args[1] in ("dense", "block"):
+    if len(args) == 2 and args[0] == "--profile-pivots" and args[1] in ("dense", "block",
+                                                                        "batch"):
         sys.exit(profile_main(args[1]))
     if args == ["--nonlinear"]:
         sys.exit(nonlinear_main())
+    if args == ["--batch"]:
+        sys.exit(batch_main())
     sys.exit(main())

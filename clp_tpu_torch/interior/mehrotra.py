@@ -33,8 +33,10 @@ import torch
 from ..forms import StandardLP
 from ..ops.linalg import (
     block_tridiag_cholesky,
+    block_tridiag_cholesky_lanes,
     block_tridiag_solve,
     chol_factor_reg,
+    chol_factor_reg_lanes,
     chol_solve,
 )
 
@@ -657,6 +659,259 @@ def ipm_solve(lp: StandardLP, opts: IPMOptions = IPMOptions()) -> IPMResult:
         pobj=pobj,
         dobj=dobj,
         blowup=blowup,
+    )
+
+
+# --------------------------------------------------------------------------
+# the batched IPM: many same-shape LPs (or QPs), lane by lane
+# --------------------------------------------------------------------------
+
+
+def _lane_metrics(G, b, c, l, u, Q, hl, hu, bnorm, cnorm, x, y, z, w):
+    """ipm_solve's metrics for one lane (vmapped)."""
+    rb = b - G @ x
+    rc = (c if Q is None else c + Q @ x) - G.T @ y - z + w
+    pinf = torch.clamp(rb.abs().amax(), min=0.0) / bnorm
+    dinf = torch.clamp(rc.abs().amax(), min=0.0) / cnorm
+    quad = 0.0 if Q is None else 0.5 * (x @ (Q @ x))
+    pobj = c @ x + quad
+    dobj = (b @ y + torch.sum(torch.where(hl, l * z, 0.0))
+            - torch.sum(torch.where(hu, u * w, 0.0)) - quad)
+    relgap = torch.abs(pobj - dobj) / (1.0 + torch.abs(pobj))
+    return rb, rc, pinf, dinf, relgap, pobj, dobj
+
+
+def ipm_solve_batched(lp: StandardLP, opts: IPMOptions = IPMOptions()) -> IPMResult:
+    """Mehrotra IPM over a batch of same-shape problems on a leading axis B.
+
+    The JAX package runs ipm_solve under jax.vmap, where its while_loop
+    becomes one loop with a per-lane frozen carry and its factorizations'
+    escalation loops run per lane. Here: one Python loop over IPM
+    iterations, a per-lane `done` mask read on the host once per iteration
+    for the whole batch, each iteration computed for the lanes still
+    running only, and the Newton factorizations escalating their shifts
+    lane by lane (chol_factor_reg_lanes / block_tridiag_cholesky_lanes). So
+    every lane takes the iterations it would take alone. The lane
+    arithmetic is ipm_solve's, vmapped. The branches are the batch's:
+    dense and banded (opts.band_nb, rows already permuted) normal equations
+    for LPs, the H = Q + D^-1 reduction for QPs.
+    """
+    if (opts.linear_solver != "cholesky" or opts.sparse_chol is not None
+            or opts.sparse_chol_device is not None or opts.mixed32
+            or opts.q_diag or opts.grad_fn is not None):
+        raise ValueError("ipm_solve_batched runs the dense, banded and QP "
+                         "Newton branches only")
+    from torch.func import vmap
+
+    G, b, c, l, u, Q = lp.G, lp.b, lp.c, lp.l, lp.u, lp.Q
+    Bn, m, nt = G.shape
+    dtype, device = G.dtype, G.device
+    hl, hu = torch.isfinite(l), torch.isfinite(u)
+    n_active = torch.clamp(hl.sum(dim=1) + hu.sum(dim=1), min=1).to(dtype)
+    bnorm = 1.0 + torch.clamp(b.abs().amax(dim=1), min=0.0) if m else G.new_ones(Bn)
+    cnorm = 1.0 + torch.clamp(c.abs().amax(dim=1), min=0.0)
+    banded = opts.band_nb > 0 and Q is None
+    reg = opts.reg_dual + 1e-12
+    eye_m = torch.eye(m, dtype=dtype, device=device)
+
+    if banded:
+        nb = opts.band_nb
+        kb = -(-m // nb)
+        Gp = torch.zeros((Bn, kb * nb, nt), dtype=dtype, device=device)
+        Gp[:, :m] = G
+        G_blk = Gp.reshape(Bn, kb, nb, nt)
+        padm = (torch.arange(kb * nb, device=device) >= m).to(dtype).reshape(kb, nb)
+        pad_eye = torch.diag_embed(padm)
+        eye_nb = torch.eye(nb, dtype=dtype, device=device)
+
+        def band_factor(idx, d, shift, base_reg):
+            Gb = G_blk.index_select(0, idx)
+            Gd = Gb if d is None else Gb * d[:, None, None, :]
+            A = Gd @ Gb.mT + pad_eye + shift * eye_nb
+            E = Gd[:, 1:] @ Gb[:, :-1].mT
+            Lb, Cb, _ = block_tridiag_cholesky_lanes(A, E, base_reg=base_reg)
+            return Lb, Cb
+
+        def band_solve(Lb, Cb, r):  # one lane
+            rp = torch.nn.functional.pad(r, (0, kb * nb - m))
+            return block_tridiag_solve(Lb, Cb, rp.reshape(kb, nb)).reshape(-1)[:m]
+
+        all_ = torch.arange(Bn, device=device)
+        Lb0, Cb0 = band_factor(all_, None, 1e-12, 0.0)
+        yls = vmap(band_solve)(Lb0, Cb0, b)
+    else:
+        L0, _ = chol_factor_reg_lanes(G @ G.mT, base_reg=1e-12)
+        yls = vmap(chol_solve)(L0, b)
+    x_ls = (yls[:, None, :] @ G)[:, 0]
+
+    def start(l1, u1, c1, hl1, hu1, x_ls1):  # _starting_point after x_ls
+        both = hl1 & hu1
+        width = torch.where(both, u1 - l1, torch.inf)
+        margin = torch.minimum(1.0 + 0.1 * x_ls1.abs(), 0.25 * width)
+        lo = torch.where(hl1, l1 + torch.where(both, margin, 1.0 + 0.1 * l1.abs()), -torch.inf)
+        hi = torch.where(hu1, u1 - torch.where(both, margin, 1.0 + 0.1 * u1.abs()), torch.inf)
+        mid = 0.5 * (torch.where(torch.isfinite(lo), lo, 0.0)
+                     + torch.where(torch.isfinite(hi), hi, 0.0))
+        lo_ok = lo <= hi
+        x0 = torch.clamp(x_ls1, torch.where(lo_ok, lo, mid), torch.where(lo_ok, hi, mid))
+        cscale = 1.0 + torch.sqrt(torch.sum(c1 * c1) / nt)
+        z0 = torch.where(hl1, cscale, 0.0)
+        w0 = torch.where(hu1, cscale, 0.0)
+        g0 = torch.where(hl1, x0 - l1, 1.0)
+        t0 = torch.where(hu1, u1 - x0, 1.0)
+        return x0, torch.zeros(m, dtype=dtype, device=device), z0, w0, g0, t0
+
+    st = [a.clone() for a in vmap(start)(l, u, c, hl, hu, x_ls)]
+
+    def lane(i, t):
+        """Lane subset i of the per-lane problem data (Q may be None)."""
+        return [None if a is None else a.index_select(0, i) for a in t]
+
+    data = (G, b, c, l, u, Q, hl, hu, bnorm, cnorm)
+    qd = Q is not None
+
+    def metrics(*a):
+        G1, b1, c1, l1, u1, *rest = a
+        Q1 = rest[0] if qd else None
+        rest = rest[1:] if qd else rest
+        return _lane_metrics(G1, b1, c1, l1, u1, Q1, *rest)
+
+    def conv_of(pinf, dinf, relgap):
+        return (pinf <= opts.tol) & (dinf <= opts.tol) & (relgap <= opts.tol)
+
+    def packed(t):  # the data tuple without a None Q, for vmap
+        return [a for a in t if a is not None]
+
+    _, _, pinf, dinf, relgap, _, _ = vmap(metrics)(*packed(data), *st[:4])
+    done = conv_of(pinf, dinf, relgap)
+    it = torch.zeros(Bn, dtype=torch.int64, device=device)
+
+    def pre(G1, b1, c1, l1, u1, *rest):
+        Q1 = rest[0] if qd else None
+        hl1, hu1, bn1, cn1, na1, x, y, z, w, g, t = rest[1:] if qd else rest
+        rb, rc, *_ = _lane_metrics(G1, b1, c1, l1, u1, Q1, hl1, hu1, bn1, cn1, x, y, z, w)
+        mu = (torch.sum(torch.where(hl1, g * z, 0.0))
+              + torch.sum(torch.where(hu1, t * w, 0.0))) / na1
+        zg = torch.where(hl1, z / g, 0.0)
+        wt = torch.where(hu1, w / t, 0.0)
+        reg_p = torch.clamp(1e-2 * mu + 1e-14, max=opts.reg_primal)
+        dinv = zg + wt + reg_p * (1.0 + c1.abs())
+        return rb, rc, mu, dinv
+
+    def post(G1, b1, c1, l1, u1, *rest):
+        """One lane's predictor-corrector step; `fac` is the lane's Newton
+        factors: (M, L) dense, (Lb, Cb) banded, (Lh, M, L) for a QP."""
+        Q1 = rest[0] if qd else None
+        hl1, hu1, bn1, cn1, na1, x, y, z, w, g, t, rb, rc, mu, dinv = rest[1 if qd else 0:][:15]
+        fac = rest[(1 if qd else 0) + 15:]
+        d = torch.clamp(1.0 / dinv, max=opts.free_var_cap)
+        if qd:
+            Lh, M, L = fac
+
+            def hsolve(r):
+                return chol_solve(Lh, r)
+        else:
+            def hsolve(r):
+                return d * r
+        if banded:
+            Lb, Cb = fac
+
+            def nsolve(rhs):
+                x_ = band_solve(Lb, Cb, rhs)
+                for _ in range(opts.refine_steps + 1):
+                    x_ = x_ + band_solve(Lb, Cb, rhs - (G1 @ (d * (G1.T @ x_)) + reg * x_))
+                return x_
+        else:
+            M, L = fac[-2:]
+
+            def nsolve(rhs):
+                dy = chol_solve(L, rhs)
+                for _ in range(opts.refine_steps):
+                    dy = dy + chol_solve(L, rhs - M @ dy)
+                return dy
+
+        def newton(rgz, rtw):
+            h = rc - torch.where(hl1, rgz / g, 0.0) + torch.where(hu1, rtw / t, 0.0)
+            dy = nsolve(rb + G1 @ hsolve(h))
+            dx = hsolve(G1.T @ dy - h)
+            dz = torch.where(hl1, (rgz - z * dx) / g, 0.0)
+            dw = torch.where(hu1, (rtw + w * dx) / t, 0.0)
+            return dx, dy, dz, dw
+
+        dxa, dya, dza, dwa = newton(-g * z, -t * w)
+        ap_aff = torch.clamp(torch.minimum(_max_step(g, dxa, hl1), _max_step(t, -dxa, hu1)),
+                             max=1.0)
+        ad_aff = torch.clamp(torch.minimum(_max_step(z, dza, hl1), _max_step(w, dwa, hu1)),
+                             max=1.0)
+        mu_aff = (torch.sum(torch.where(hl1, (g + ap_aff * dxa) * (z + ad_aff * dza), 0.0))
+                  + torch.sum(torch.where(hu1, (t - ap_aff * dxa) * (w + ad_aff * dwa), 0.0))
+                  ) / na1
+        sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-300)) ** 3, 1e-8, 1.0)
+        dx, dy, dz, dw = newton(sigma * mu - g * z - dxa * dza,
+                                sigma * mu - t * w + dxa * dwa)
+        ap_max = torch.minimum(_max_step(g, dx, hl1), _max_step(t, -dx, hu1))
+        ad_max = torch.minimum(_max_step(z, dz, hl1), _max_step(w, dw, hu1))
+        eta = torch.clamp(1.0 - 0.1 * mu, min=opts.step_factor)
+        ap = torch.clamp(eta * ap_max, max=1.0)
+        ad = torch.clamp(eta * ad_max, max=1.0)
+        x1 = torch.clamp(x + ap * dx, l1, u1)
+        y1 = y + ad * dy
+        z1 = torch.where(hl1, z + ad * dz, 0.0)
+        w1 = torch.where(hu1, w + ad * dw, 0.0)
+        g1 = torch.where(hl1, g + ap * dx, 1.0)
+        t1 = torch.where(hu1, t - ap * dx, 1.0)
+        slack_keep = 0.1 * (1.0 - opts.step_factor)
+        g1 = torch.where(hl1, torch.maximum(g1, slack_keep * g), 1.0)
+        t1 = torch.where(hu1, torch.maximum(t1, slack_keep * t), 1.0)
+        mu1 = (torch.sum(torch.where(hl1, g1 * z1, 0.0))
+               + torch.sum(torch.where(hu1, t1 * w1, 0.0))) / na1
+        lo_band = 1e-5
+        z1 = torch.where(hl1 & (g1 * z1 < lo_band * mu1), lo_band * mu1 / g1, z1)
+        w1 = torch.where(hu1 & (t1 * w1 < lo_band * mu1), lo_band * mu1 / t1, w1)
+        finite = (torch.isfinite(x1).all() & torch.isfinite(y1).all()
+                  & torch.isfinite(z1).all() & torch.isfinite(w1).all())
+        new = [torch.where(finite, a1, a0)
+               for a1, a0 in ((x1, x), (y1, y), (z1, z), (w1, w), (g1, g), (t1, t))]
+        _, _, pinf, dinf, relgap, _, _ = _lane_metrics(
+            G1, b1, c1, l1, u1, Q1, hl1, hu1, bn1, cn1, *new[:4])
+        return (*new, conv_of(pinf, dinf, relgap) | ~finite)
+
+    full = data + (n_active,)
+    while True:
+        run = torch.nonzero(~done & (it < opts.max_iter))[:, 0]  # one host read
+        if run.numel() == 0:
+            break
+        d_run = lane(run, full)
+        s_run = lane(run, st)
+        rb, rc, mu, dinv = vmap(pre)(*packed(d_run), *s_run)
+        d = torch.clamp(1.0 / dinv, max=opts.free_var_cap)
+        G_run = d_run[0]
+        if qd:
+            H = d_run[5] + torch.diag_embed(torch.clamp(dinv, min=1.0 / opts.free_var_cap))
+            Lh, _ = chol_factor_reg_lanes(H, base_reg=opts.reg_dual)
+            M = G_run @ vmap(chol_solve)(Lh, G_run.mT)
+            L, _ = chol_factor_reg_lanes(M, base_reg=opts.reg_dual)
+            fac = (Lh, M, L)
+        elif banded:
+            fac = band_factor(run, d, reg, 0.0)
+        else:
+            M = (G_run * d[:, None, :]) @ G_run.mT
+            L, _ = chol_factor_reg_lanes(M, base_reg=opts.reg_dual)
+            fac = (M, L)
+        out = vmap(post)(*packed(d_run), *s_run, rb, rc, mu, dinv, *fac)
+        for a, v in zip(st, out[:6]):
+            a[run] = v
+        done[run] = out[6]
+        it[run] += 1
+
+    x, y, z, w = st[:4]
+    _, _, pinf, dinf, relgap, pobj, dobj = vmap(metrics)(*packed(data), x, y, z, w)
+    blowup = torch.maximum(z.abs().amax(dim=1), w.abs().amax(dim=1))
+    return IPMResult(
+        x=x, y=y, z=z, w=w, iterations=it,
+        converged=conv_of(pinf, dinf, relgap),
+        primal_infeas=pinf, dual_infeas=dinf, rel_gap=relgap,
+        pobj=pobj, dobj=dobj, blowup=blowup,
     )
 
 

@@ -190,6 +190,34 @@ def chol_factor_reg(M: torch.Tensor, base_reg: float = 0.0, max_bumps: int = 6):
     return L, delta
 
 
+def chol_factor_reg_lanes(M: torch.Tensor, base_reg: float = 0.0,
+                          max_bumps: int = 6):
+    """chol_factor_reg over a batch (B, n, n), lane by lane: each matrix
+    escalates its own shift, x100 from base_reg, scaled by its own largest
+    diagonal entry, as it would alone (the JAX package's while_loop under
+    vmap). Only the lanes that failed are factored again; the failure flags
+    (cholesky_ex's per-matrix info) are read on the host once per attempt.
+
+    Returns (L, delta (B,)): L is NaN in a lane whose last attempt failed.
+    """
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    scale = torch.clamp(torch.diagonal(M, dim1=-2, dim2=-1).abs().amax(dim=-1), min=1.0)
+    delta = torch.full(M.shape[:1], base_reg, dtype=M.dtype, device=M.device)
+
+    def attempt(idx):
+        L, bad = _cholesky(M.index_select(0, idx) + delta[idx, None, None] * eye)
+        return L, ~bad & torch.isfinite(L).flatten(1).all(dim=1)
+
+    L, ok = attempt(torch.arange(M.shape[0], device=M.device))
+    for _ in range(max_bumps):
+        fail = torch.nonzero(~ok)[:, 0]
+        if fail.numel() == 0:
+            break
+        delta[fail] = torch.maximum(1e-14 * scale[fail], delta[fail] * 100.0)
+        L[fail], ok[fail] = attempt(fail)
+    return L, delta
+
+
 def chol_blocked(A: torch.Tensor, nb: int = 256) -> torch.Tensor:
     """Right-looking blocked Cholesky: a Cholesky of each nb-diagonal block,
     the panel below it through the block's explicit triangular inverse, and
@@ -287,6 +315,51 @@ def block_tridiag_cholesky(A: torch.Tensor, E: torch.Tensor,
         delta = torch.maximum(1e-14 * scale, delta * 100.0)
         L, C, ok = attempt(delta)
         bumps += 1
+    return L, C, delta
+
+
+def block_tridiag_cholesky_lanes(A: torch.Tensor, E: torch.Tensor,
+                                 base_reg: float = 0.0, max_bumps: int = 6):
+    """block_tridiag_cholesky over a batch, lane by lane.
+
+    A: (B, k, nb, nb), E: (B, k-1, nb, nb). Each lane's sweep is retried
+    with its own escalating shift, as it would be alone; only the lanes
+    that failed sweep again. Returns (L, C, delta (B,)).
+    """
+    Bn, k, nb, _ = A.shape
+    eye = torch.eye(nb, dtype=A.dtype, device=A.device)
+    scale = torch.clamp(
+        torch.diagonal(A, dim1=-2, dim2=-1).abs().flatten(1).amax(dim=1), min=1.0)
+    delta = torch.full((Bn,), base_reg, dtype=A.dtype, device=A.device)
+
+    def attempt(idx):
+        Ai, Ei = A.index_select(0, idx), E.index_select(0, idx)
+        dl = delta[idx, None, None]
+        Ls, Cs, bads = [], [], []
+        prevL = eye.expand(idx.numel(), nb, nb)
+        for i in range(k):
+            S_i = Ai[:, i] + dl * eye
+            if i > 0:
+                C_i = torch.linalg.solve_triangular(
+                    prevL, Ei[:, i - 1].mT, upper=False).mT
+                S_i = S_i - C_i @ C_i.mT
+                Cs.append(C_i)
+            L_i, bad = _cholesky(S_i)
+            prevL = torch.where(torch.isfinite(L_i), L_i, eye)
+            Ls.append(L_i)
+            bads.append(bad)
+        L = torch.stack(Ls, dim=1)
+        C = torch.stack(Cs, dim=1) if Cs else A.new_zeros((idx.numel(), 0, nb, nb))
+        ok = ~torch.stack(bads, dim=1).any(dim=1) & torch.isfinite(L).flatten(1).all(dim=1)
+        return L, C, ok
+
+    L, C, ok = attempt(torch.arange(Bn, device=A.device))
+    for _ in range(max_bumps):
+        fail = torch.nonzero(~ok)[:, 0]
+        if fail.numel() == 0:
+            break
+        delta[fail] = torch.maximum(1e-14 * scale[fail], delta[fail] * 100.0)
+        L[fail], C[fail], ok[fail] = attempt(fail)
     return L, C, delta
 
 

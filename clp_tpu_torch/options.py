@@ -111,8 +111,10 @@ class SolveOptions:
     # "block" prices block-banded LPs over column tiles of their row
     # windows (kernel K3 on the card), and declines to "dense" where the LP
     # is not block-banded enough. It is opt-in, as in the JAX package.
-    # "ell" (sparse pricing) is not ported yet (ROADMAP.md queue 1).
-    price_mode: str = "auto"  # "auto" | "dense" | "pm1" | "block"
+    # "ell" prices through sparse row-padded forms of G (gathers and row
+    # sums); "auto" takes it only when the dense f32 copy of G would pass
+    # 6 GB at density <= 2%.
+    price_mode: str = "auto"  # "auto" | "dense" | "pm1" | "ell" | "block"
     # dual ratio test: "bfrt" = long-step bound-flipping ratio test (walk
     # past boxed breakpoints while the leaving row's infeasibility slope
     # stays positive — far fewer pivots on box-rich LPs), "harris" =

@@ -1,0 +1,670 @@
+"""Scenario-batched solves: many same-shape LPs as one batched program.
+
+The JAX package's headline capability (BASELINE.json configs[4]): stack B
+instances on a leading axis and run the IPM, the dual simplex or the QP
+simplex over all of them at once. The JAX package vmaps its jitted loops;
+under vmap a `while_loop` becomes one loop whose lanes freeze once their
+own predicate fails. The port runs the same bodies (engine.recompute,
+dual_iteration, primal_iteration, make_dual_feasible, simplex/qp's gated
+iteration) under torch.func.vmap and writes that loop out lane by lane:
+
+  * each lane's "still pivoting" flag is the JAX inner loop's predicate
+    (status, the chunk count, refactor_now, max_iterations);
+  * the flag gates the lane's update with torch.where over every field of
+    the state, so a frozen lane is left exactly as it was;
+  * the host reads the flags once per block of `inner_unroll` pivots for
+    the whole batch, and once per refactor round, never once per lane.
+
+On the CPU a lane then gives the bits of its single solve
+(engine._mv keeps the matvecs so). A device mesh is not ported (ROADMAP.md
+queue 1: multi-device).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from ..device import check_fp32_precision, on_accelerator, resolve_device
+from ..forms import StandardLP, to_ipm_form, to_standard_form
+from ..interior.mehrotra import IPMOptions, ipm_solve_batched
+from ..model import Model, Solution
+from ..options import SolveOptions
+from ..simplex import engine
+from ..simplex import qp as qpm
+from ..simplex.engine import CONTINUE, NUMERICAL, OPTIMAL, SimplexOptions, SimplexState
+
+_LP = ("G", "b", "c", "l", "u")
+_SF = tuple(f.name for f in dataclasses.fields(SimplexState))
+_QF = tuple(f.name for f in dataclasses.fields(qpm.QPState))
+
+
+def no_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} over a device mesh is not ported yet "
+            "(ROADMAP.md queue 1: multi-device)")
+
+
+# --------------------------------------------------------------------------
+# stacking
+# --------------------------------------------------------------------------
+
+
+def _stack(lps, device) -> StandardLP:
+    has_q = [lp.Q is not None for lp in lps]
+    if any(has_q) and not all(has_q):
+        raise ValueError("mixed LP/QP batches are not supported")
+    f = {k: torch.stack([getattr(lp, k) for lp in lps]).to(device) for k in _LP}
+    f["Q"] = torch.stack([lp.Q for lp in lps]).to(device) if all(has_q) else None
+    return StandardLP(**f)
+
+
+def stack_models(models: Sequence[Model], device="cuda") -> tuple[StandardLP, list]:
+    """Stack same-shape models into one batched StandardLP (IPM form) and
+    the per-model form infos. The forms are built on the host and moved to
+    `device` once."""
+    lps, infos = [], []
+    shape = None
+    for mod in models:
+        lp, info = to_ipm_form(mod, device="cpu")
+        if shape is None:
+            shape = lp.G.shape
+        elif lp.G.shape != shape:
+            raise ValueError(
+                f"all models in a batch must share shape; got {tuple(lp.G.shape)} vs "
+                f"{tuple(shape)} (pad or bucket by shape first)")
+        lps.append(lp)
+        infos.append(info)
+    return _stack(lps, resolve_device(device)), infos
+
+
+def stack_models_simplex(models: Sequence[Model], device="cuda") -> tuple[StandardLP, list]:
+    """Stack same-shape models into one batched StandardLP (simplex form)."""
+    lps, infos = [], []
+    shape = None
+    for mod in models:
+        lp, info = to_standard_form(mod, device="cpu")
+        if shape is None:
+            shape = lp.G.shape
+        elif lp.G.shape != shape:
+            raise ValueError("all models in a batch must share shape")
+        lps.append(lp)
+        infos.append(info)
+    has_q = [lp.Q is not None for lp in lps]
+    if any(has_q) and not all(has_q):
+        raise ValueError("mixing QP and LP instances in one batch")
+    return _stack(lps, resolve_device(device)), infos
+
+
+# --------------------------------------------------------------------------
+# lanes: batched states as dicts of tensors with a leading lane axis
+# --------------------------------------------------------------------------
+
+
+def _lp(d) -> StandardLP:
+    return StandardLP(**d)
+
+
+def _lpd(lp: StandardLP) -> dict:
+    return {k: getattr(lp, k) for k in _LP}
+
+
+def _sd(st, fields=_SF) -> dict:
+    return {k: getattr(st, k) for k in fields}
+
+
+def take(d: dict, idx: torch.Tensor) -> dict:
+    """The lanes `idx` of a batched dict."""
+    return {k: v.index_select(0, idx) for k, v in d.items()}
+
+
+def put(d: dict, idx: torch.Tensor, sub: dict) -> dict:
+    """d with the lanes `idx` replaced by `sub` (out of place)."""
+    return {k: v.index_copy(0, idx, sub[k]) for k, v in d.items()}
+
+
+def gate(mask: torch.Tensor, new: dict, old: dict) -> dict:
+    """Per lane: `new` where mask, else `old` bit for bit."""
+    return {k: torch.where(mask.reshape((-1,) + (1,) * (v.ndim - 1)), new[k], v)
+            for k, v in old.items()}
+
+
+def lane(d: dict, i: int) -> dict:
+    return {k: v[i] for k, v in d.items()}
+
+
+class _Lanes:
+    """The port's single-LP simplex bodies, vmapped over a batch of lanes.
+
+    The loop-invariant forms (pivot_invariants, the f32 copy of G in the
+    mixed engine) are built once per batch, as `_dual_iteration_fn` builds
+    them once per solve. The batched routes run the EngineOptions defaults:
+    dense PRICE with no kernel launch under vmap."""
+
+    def __init__(self, lpd: dict, opts: SimplexOptions):
+        if opts.price_mode != "dense" or opts.use_pallas_price or opts.use_pallas_pivot:
+            raise ValueError("the batched engine runs dense PRICE with no kernel")
+        self.lpd, self.opts = lpd, opts
+        o = opts
+        self.pre = vmap(lambda l: engine.pivot_invariants(_lp(l), o))(lpd)
+        self.G32 = lpd["G"].to(torch.float32) if o.inverse_dtype == "float32" else None
+
+    def take(self, idx: torch.Tensor) -> "_Lanes":
+        out = object.__new__(_Lanes)
+        out.lpd, out.opts = take(self.lpd, idx), self.opts
+        out.pre = take(self.pre, idx)
+        out.G32 = None if self.G32 is None else self.G32.index_select(0, idx)
+        return out
+
+    def with_opts(self, opts: SimplexOptions) -> "_Lanes":
+        return _Lanes(self.lpd, opts)
+
+    # the vmapped bodies -----------------------------------------------------
+
+    def dual_step(self, S: dict) -> dict:
+        o = self.opts
+        if self.G32 is None:
+            def one(l, s, pre):
+                return _sd(engine.dual_iteration(_lp(l), SimplexState(**s), o, pre=pre))
+            return vmap(one)(self.lpd, S, self.pre)
+
+        def one32(l, s, pre, g32):
+            return _sd(engine.dual_iteration(_lp(l), SimplexState(**s), o, G32=g32, pre=pre))
+        return vmap(one32)(self.lpd, S, self.pre, self.G32)
+
+    def primal_step(self, S: dict) -> dict:
+        o = self.opts
+        if self.G32 is None:
+            def one(l, s):
+                return _sd(engine.primal_iteration(_lp(l), SimplexState(**s), o))
+            return vmap(one)(self.lpd, S)
+
+        def one32(l, s, g32):
+            return _sd(engine.primal_iteration(_lp(l), SimplexState(**s), o, G32=g32))
+        return vmap(one32)(self.lpd, S, self.G32)
+
+    def recompute(self, S: dict) -> dict:
+        o = self.opts
+        return vmap(lambda l, s: _sd(engine.recompute(_lp(l), SimplexState(**s),
+                                                      o.dual_bound)))(self.lpd, S)
+
+    def make_dual_feasible(self, S: dict) -> dict:
+        o = self.opts
+        return vmap(lambda l, s: _sd(engine.make_dual_feasible(
+            _lp(l), SimplexState(**s), o)))(self.lpd, S)
+
+    def verify_dual(self, S: dict) -> torch.Tensor:
+        o = self.opts
+        return vmap(lambda l, s: engine._verify_dual_claim(
+            _lp(l), SimplexState(**s), o))(self.lpd, S)
+
+    def verify_primal(self, S: dict) -> torch.Tensor:
+        o = self.opts
+        return vmap(lambda l, s: engine._verify_primal_claim(
+            _lp(l), SimplexState(**s), o))(self.lpd, S)
+
+    def initial_state(self) -> dict:
+        o = self.opts
+        return vmap(lambda l: _sd(engine.initial_state(_lp(l), o)))(self.lpd)
+
+    def objective(self, S: dict) -> torch.Tensor:
+        o = self.opts
+
+        def one(l, s):
+            xn = engine.nonbasic_values(_lp(l), s["vstat"], o.dual_bound)
+            return l["c"].index_select(0, s["basis"]) @ s["xb"] + l["c"] @ xn
+        return vmap(one)(self.lpd, S)
+
+
+def _chunk(S: dict, active: torch.Tensor, step, chunk: int, U: int, max_iter: int,
+           clip: bool = False) -> dict:
+    """The JAX inner while_loop under vmap: up to `chunk` pivots per lane,
+    in blocks of U with one host read per block for the whole batch. A
+    lane runs while its own predicate holds; a gated lane keeps its state
+    bit for bit. `clip` ends a block at the chunk boundary (the QP loop's
+    blocks); the simplex's self-gating pivots over-run it, as in JAX."""
+    k = 0
+
+    def pred(S, k):
+        return ((S["status"] == CONTINUE) & ~S["refactor_now"]
+                & (S["iterations"] < max_iter)) if k < chunk else torch.zeros_like(active)
+
+    run = active & pred(S, k)
+    while bool(run.any()):
+        n = min(U, chunk - k) if clip else U
+        for _ in range(n):
+            S = gate(run, step(S), S)
+        k += n
+        run = run & pred(S, k)
+    return S
+
+
+def lanes_run(S: dict, recompute, verify, step, opts: SimplexOptions,
+              max_chunks: int = 0, claims=(engine.OPTIMAL, engine.PRIMAL_INFEASIBLE,
+                                           engine.DUAL_INFEASIBLE),
+              reclaim: bool = True, U: Optional[int] = None, clip: bool = False):
+    """engine._run_loop over a batch of lanes, as jax.vmap runs the JAX
+    package's: each lane keeps its own stall count, verification and round
+    count, and freezes once its own outer predicate fails. One host read
+    per refactor round for the whole batch. Returns (S, verified)."""
+    U = max(1, int(opts.inner_unroll)) if U is None else U
+    Bn = S["status"].shape[0]
+    dev = S["status"].device
+    stalls = torch.zeros(Bn, dtype=torch.int32, device=dev)
+    verified = torch.zeros(Bn, dtype=torch.bool, device=dev)
+    rounds = torch.zeros(Bn, dtype=torch.int32, device=dev)
+    claims_t = torch.tensor(claims, dtype=S["status"].dtype, device=dev)
+    term_t = claims_t[claims_t != OPTIMAL]
+    while True:
+        status = S["status"]
+        claim = torch.isin(status, claims_t)
+        ok = (((status == CONTINUE) | (claim & ~verified))
+              & (S["iterations"] < opts.max_iterations) & (stalls < 3))
+        if max_chunks > 0:
+            ok = ok & (rounds < max_chunks)
+        if not bool(ok.any()):
+            break
+        iters_before = S["iterations"]
+        claimed_opt = status == OPTIMAL
+        claimed_term = torch.isin(status, term_t) if reclaim else torch.zeros_like(ok)
+        R = recompute(S)
+        v = claimed_opt & verify(R) & (R["status"] != NUMERICAL)
+        R["status"] = torch.where(
+            R["status"] == NUMERICAL, NUMERICAL,
+            torch.where(v, OPTIMAL, CONTINUE)).to(status.dtype)
+        R = _chunk(R, ok & ~v, step, opts.refactor_frequency, U, opts.max_iterations,
+                   clip)
+        reclaimed = claimed_term & (R["status"] == status) & (R["iterations"] == iters_before)
+        v = v | reclaimed
+        made = (R["iterations"] > iters_before) | v
+        S = gate(ok, R, S)
+        verified = torch.where(ok, v, verified)
+        stalls = torch.where(ok, torch.where(made, 0, stalls + 1), stalls).to(stalls.dtype)
+        rounds = torch.where(ok, rounds + 1, rounds)
+    S = dict(S)
+    S["status"] = torch.where((S["status"] == CONTINUE) & (stalls >= 3), NUMERICAL,
+                              S["status"]).to(S["status"].dtype)
+    # final consistency pass (already on fresh factors where verified)
+    if bool((~verified).any()):
+        S = gate(verified, S, recompute(S))
+    S["status"] = torch.where(
+        (S["status"] == CONTINUE) & (S["iterations"] >= opts.max_iterations),
+        engine.ITER_LIMIT, S["status"]).to(S["status"].dtype)
+    return S, verified
+
+
+# --------------------------------------------------------------------------
+# the batched dual simplex engine (the JAX package's _b* programs)
+# --------------------------------------------------------------------------
+
+
+def _bprep(E: _Lanes, S: dict) -> dict:
+    return E.make_dual_feasible(E.recompute(S))
+
+
+def _brounds(E: _Lanes, S: dict, rounds: int):
+    """`rounds` refactor-chunks of the full claim protocol per lane
+    (engine.dual_solve_rounds, lane by lane). Returns (S, verified)."""
+    return lanes_run(S, E.recompute, E.verify_dual, E.dual_step, E.opts, max_chunks=rounds)
+
+
+def _bchunk(E: _Lanes, S: dict):
+    """engine._one_chunk lane by lane: refactorize, verify an OPTIMAL claim,
+    and up to one chunk of pivots where it did not verify. Returns (S,
+    verified, objective)."""
+    o = E.opts
+    claimed = S["status"] == OPTIMAL
+    R = E.recompute(S)
+    v = claimed & E.verify_dual(R) & (R["status"] != NUMERICAL)
+    R["status"] = torch.where(R["status"] == NUMERICAL, NUMERICAL,
+                              torch.where(v, OPTIMAL, CONTINUE)).to(S["status"].dtype)
+    R = _chunk(R, ~v, E.dual_step, o.refactor_frequency, max(1, int(o.inner_unroll)),
+               o.max_iterations)
+    return R, v, E.objective(R)
+
+
+def _brerun(E: _Lanes, S: dict, need: torch.Tensor) -> dict:
+    """Re-solve the lanes `need` from their own bases (the fake-bound
+    escalation): recompute, make dual feasible, a whole dual solve."""
+    idx = torch.nonzero(need)[:, 0]
+    Es = E.take(idx)
+    sub = take(S, idx)
+    sub["status"] = torch.full_like(sub["status"], CONTINUE)
+    sub = _bprep(Es, sub)
+    sub, _ = lanes_run(sub, Es.recompute, Es.verify_dual, Es.dual_step, Es.opts)
+    return put(S, idx, sub)
+
+
+def _bprimal_finish(E: _Lanes, S: dict, need: torch.Tensor) -> dict:
+    """The lanes `need` park their fake-bound nonbasics at 0 as FREE and
+    finish with the primal on the true bounds (resetFakeBounds + primal
+    cleanup, ClpSimplexDual.cpp:8303)."""
+    idx = torch.nonzero(need)[:, 0]
+    Es = E.take(idx)
+    sub = take(S, idx)
+    vs = sub["vstat"]
+    sub["vstat"] = torch.where(_fake(Es.lpd, vs), engine.FREE, vs).to(vs.dtype)
+    sub["status"] = torch.full_like(sub["status"], CONTINUE)
+    sub = Es.recompute(sub)
+    sub, _ = lanes_run(sub, Es.recompute, Es.verify_primal, Es.primal_step, Es.opts)
+    return put(S, idx, sub)
+
+
+def _fake(lpd: dict, vs: torch.Tensor) -> torch.Tensor:
+    """Nonbasics sitting at a fake bound (an infinite bound of the LP)."""
+    return (((vs == engine.AT_LOWER) & ~torch.isfinite(lpd["l"]))
+            | ((vs == engine.AT_UPPER) & ~torch.isfinite(lpd["u"])))
+
+
+def _fake_lanes(lpd: dict, S: dict) -> torch.Tensor:
+    return _fake(lpd, S["vstat"]).any(dim=1)
+
+
+def _compacting_dual_loop(E: _Lanes, S: dict, rounds_per_dispatch: int = 6) -> dict:
+    """The batched dual simplex with live-set compaction.
+
+    Runs a bounded number of refactor-chunks per dispatch (the whole
+    verified-claim protocol inside), then retires the lanes whose status
+    is settled and packs the survivors together, so finished lanes stop
+    costing work. The JAX package pads the survivors to a power of two to
+    bound its compiled programs; nothing compiles here, so the live set is
+    packed exactly. One packed host read per dispatch."""
+    o = E.opts
+    Bn = S["status"].shape[0]
+    dev = S["status"].device
+    out = {k: v.clone() for k, v in S.items()}
+    live = torch.arange(Bn, device=dev)
+    S = _bprep(E, S)
+    max_disp = int(o.max_iterations) // max(1, int(o.refactor_frequency) * rounds_per_dispatch) + 8
+    prev_iters = np.full(Bn, -1, dtype=np.int64)
+    stall = np.zeros(Bn, dtype=np.int64)
+    for _ in range(max_disp):
+        S, ver = _brounds(E, S, rounds_per_dispatch)
+        stat, ver_np, iters = torch.stack(
+            [S["status"].to(torch.int64), ver.to(torch.int64),
+             S["iterations"].to(torch.int64)]).cpu().numpy()
+        ver_np = ver_np.astype(bool)
+        # settled: verified claims and hard stops. A lane whose terminal
+        # claim persists unverified with no pivots over two dispatches is
+        # retired as NUMERICAL (the host pending/stall protocol)
+        hard = np.isin(stat, (NUMERICAL, engine.ITER_LIMIT))
+        claim_stalled = ~ver_np & (stat != CONTINUE) & ~hard & (iters == prev_iters)
+        stall = np.where(claim_stalled, stall + 1, 0)
+        prev_iters = iters.copy()
+        give_up = stall >= 2
+        finish = ver_np | hard | give_up
+        if finish.any():
+            gu = torch.as_tensor(give_up & ~(ver_np | hard), device=dev)
+            S["status"] = torch.where(gu, NUMERICAL, S["status"]).to(S["status"].dtype)
+            fin = torch.as_tensor(np.flatnonzero(finish), device=dev)
+            out = put(out, live.index_select(0, fin), take(S, fin))
+            keep = ~finish
+            if not keep.any():
+                return out
+            kidx = torch.as_tensor(np.flatnonzero(keep), device=dev)
+            live = live.index_select(0, kidx)
+            prev_iters, stall = prev_iters[keep], stall[keep]
+            E, S = E.take(kidx), take(S, kidx)
+    # dispatch budget exhausted: what is left goes back as NUMERICAL
+    S["status"] = torch.full_like(S["status"], NUMERICAL)
+    return put(out, live, S)
+
+
+def _engine_options(options: SolveOptions, m0: int, accel: bool) -> SimplexOptions:
+    inv = getattr(options, "inverse_dtype", "auto")
+    if inv == "auto":
+        # the single-LP driver's policy: the f32 pivot loop on the card at
+        # scale (the JAX package's TPU branch)
+        inv = "float32" if accel and m0 >= 512 else "float64"
+    return SimplexOptions(
+        refactor_frequency=options.refactor_frequency or (400 if inv == "float32" else 100),
+        max_iterations=options.max_iterations or 100000,
+        inverse_dtype=inv,
+        # blocks of 8 gated pivots per host read in the mixed engine: every
+        # lane pays the slowest lane's loop boundary
+        inner_unroll=8 if inv == "float32" else 1,
+    )
+
+
+def solve_batch_dual_simplex(
+    models: Sequence[Model],
+    options: Optional[SolveOptions] = None,
+    mesh=None,
+    warm: Optional[Solution] = None,
+) -> list[Solution]:
+    """Batched dual simplex: the whole pivot loop over all instances at once.
+
+    The per-instance host policies (fake-bound escalation, algorithm
+    switching) run batched where they can: lanes that end on a fake bound
+    re-solve with a larger bound, then finish with the primal, still as one
+    batch. Only numerical leftovers go through the single-instance driver.
+    """
+    from ..simplex.driver import _extract, _warm_state, simplex_solve
+
+    options = options or SolveOptions()
+    no_mesh(mesh, "the batched dual simplex")
+    device = resolve_device(options.device)
+    batched, _infos = stack_models_simplex(models, device)
+    accel = on_accelerator(batched.G)
+    if accel:
+        check_fp32_precision()
+    m0, nt0 = batched.G.shape[1:]
+    opts = _engine_options(options, m0, accel)
+    lpd = _lpd(batched)
+    E = _Lanes(lpd, opts)
+    if warm is not None and warm.column_status is not None:
+        # a shared warm basis (e.g. strong branching from one parent): each
+        # lane's warm state built on the host, then stacked
+        per = [_warm_state(_lp(lane(lpd, i)), opts, warm, nt0 - m0, m0)
+               for i in range(len(models))]
+        S = {k: torch.stack([getattr(p, k) for p in per]) for k in _SF}
+    else:
+        S = E.initial_state()
+
+    S = _compacting_dual_loop(E, S)
+
+    stat_t = S["status"]
+    fakes = _fake_lanes(lpd, S)
+    opts_e = opts
+    for _ in range(2):
+        need = (stat_t == OPTIMAL) & fakes
+        if not bool(need.any()):
+            break
+        opts_e = dataclasses.replace(opts_e, dual_bound=opts_e.dual_bound * 100.0)
+        E = E.with_opts(opts_e)
+        S = _brerun(E, S, need)
+        stat_t, fakes = S["status"], _fake_lanes(lpd, S)
+    # OPTIMAL on a fake bound needs the true-bounds primal finish; an
+    # infeasibility claim with fakes active is suspect for the same reason
+    # the driver adjudicates it (a folded free variable prices one way)
+    need_pf = ((stat_t == OPTIMAL) | (stat_t == engine.PRIMAL_INFEASIBLE)) & fakes
+    if bool(need_pf.any()):
+        S = _bprimal_finish(E, S, need_pf)
+        fakes = _fake_lanes(lpd, S)
+
+    # one transfer of the batch to the host, then numpy per lane
+    S_h = {k: v.cpu() for k, v in S.items()}
+    lp_h = {k: v.cpu() for k, v in lpd.items()}
+    fakes_h = fakes.cpu().numpy()
+    out = []
+    for i, mod in enumerate(models):
+        st_i = SimplexState(**lane(S_h, i))
+        status = int(st_i.status)
+        clean = status in (OPTIMAL, engine.PRIMAL_INFEASIBLE, engine.DUAL_INFEASIBLE) \
+            and not (status == OPTIMAL and fakes_h[i])
+        if clean:
+            sol = _extract(mod, _lp(lane(lp_h, i)), st_i, opts_e, status)
+        else:
+            # numerical leftovers only: the per-instance policies
+            sol = simplex_solve(mod, options, dual=True)
+        mod.solution = sol
+        out.append(sol)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the batched IPM
+# --------------------------------------------------------------------------
+
+
+def solve_batch_ipm(
+    models: Sequence[Model],
+    options: SolveOptions,
+    mesh=None,
+) -> list[Solution]:
+    """Same-shape models through the lane-wise batched IPM. LPs share one
+    banded plan where RCM on the union pattern makes it pay (the reference's
+    symbolic/numeric split, ClpCholeskyBase.cpp:638: order once, factor
+    many), else run the dense normal equations."""
+    from ..solve import _ipm_to_solution, _rcm_band_plan
+
+    no_mesh(mesh, "the batched IPM")
+    batched, infos = stack_models(models, options.device)
+    opts = IPMOptions(tol=options.barrier_tolerance, max_iter=options.barrier_max_iterations)
+    perm = None
+    if batched.Q is None:
+        union = (batched.G.abs() > 0).any(dim=0).cpu().numpy()
+        perm, nb = _rcm_band_plan(union.astype(np.float64))
+        if perm is not None:
+            perm = np.ascontiguousarray(perm)
+            pj = torch.as_tensor(perm, device=batched.G.device)
+            batched = dataclasses.replace(batched, G=batched.G.index_select(1, pj),
+                                          b=batched.b.index_select(1, pj))
+            opts = dataclasses.replace(opts, band_nb=nb)
+    res = ipm_solve_batched(batched, opts)
+    res = dataclasses.replace(res, **{f.name: getattr(res, f.name).cpu()
+                                      for f in dataclasses.fields(res)})
+    if perm is not None:
+        y = torch.empty_like(res.y)
+        y[:, torch.as_tensor(perm)] = res.y
+        res.y = y
+    out = []
+    for i, (mod, info) in enumerate(zip(models, infos)):
+        one = dataclasses.replace(res, **{f.name: getattr(res, f.name)[i]
+                                          for f in dataclasses.fields(res)})
+        sol = _ipm_to_solution(mod, one, info, options)
+        mod.solution = sol
+        out.append(sol)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the batched QP simplex
+# --------------------------------------------------------------------------
+
+
+def solve_batch_qp_simplex(
+    models: Sequence[Model],
+    options: Optional[SolveOptions] = None,
+    mesh=None,
+) -> list[Solution]:
+    """Batched QP active-set simplex: same-shape QPs as one batch.
+
+    The scenario shape this serves is the warm parametric sweep (portfolio
+    rebalancing: one structure, many risk aversions). Phase 1 (a zero-cost
+    dual to a feasible vertex) and the reduced-gradient loop of simplex/qp
+    both run lane by lane over the batch; lanes the batch cannot finish
+    cleanly fall back to the single-instance QP driver."""
+    from ..constants import ProblemStatus
+    from ..simplex.driver import _ENGINE_TO_VS
+
+    options = options or SolveOptions()
+    no_mesh(mesh, "the batched QP simplex")
+    device = resolve_device(options.device)
+    batched, infos = stack_models_simplex(models, device)
+    if batched.Q is None:
+        raise ValueError("solve_batch_qp_simplex needs quadratic objectives"
+                         " (use solve_batch_dual_simplex for LPs)")
+    m0, nt0 = batched.G.shape[1:]
+    n0 = nt0 - m0
+    opts = SimplexOptions(
+        refactor_frequency=options.refactor_frequency or 100,
+        max_iterations=int(min(options.max_iterations or 10 ** 9, 50 * (m0 + n0) + 10000)),
+    )
+    lpd = _lpd(batched)
+    lpd0 = dict(lpd, c=torch.zeros_like(lpd["c"]))
+    E0 = _Lanes(lpd0, opts)
+    S0 = _bprep(E0, E0.initial_state())
+    S0, _ = lanes_run(S0, E0.recompute, E0.verify_dual, E0.dual_step, opts)
+
+    def q0(l, s):
+        xn = engine.nonbasic_values(_lp(l), s["vstat"], opts.dual_bound)
+        return {"basis": s["basis"], "vstat": s["vstat"], "binv": s["binv"],
+                "x": xn.index_put((s["basis"],), s["xb"]),
+                "iterations": torch.zeros_like(s["iterations"]),
+                "status": torch.full_like(s["status"], CONTINUE),
+                "refactor_now": torch.zeros_like(s["refactor_now"])}
+
+    Q = vmap(q0)(lpd0, S0)
+    qlpd = dict(lpd, Q=batched.Q)
+
+    def qlp(l):
+        return StandardLP(**l)
+
+    def rec(S):
+        return vmap(lambda l, s: _sd(qpm.qp_recompute(qlp(l), qpm.QPState(**s)), _QF))(qlpd, S)
+
+    def ver(S):
+        return vmap(lambda l, s: qpm._qp_optimal(qlp(l), qpm.QPState(**s), opts))(qlpd, S)
+
+    def step(S):
+        def one(l, s):
+            lp1, st = qlp(l), qpm.QPState(**s)
+            new = qpm.qp_sweep_iteration(lp1, qpm.qp_iteration(lp1, st, opts), opts)
+            run = ((st.status == CONTINUE) & ~st.refactor_now
+                   & (st.iterations < opts.max_iterations))
+            return _sd(qpm._gate(run, new, st), _QF)
+        return vmap(one)(qlpd, S)
+
+    Q, _ = lanes_run(Q, rec, ver, step, opts, claims=(OPTIMAL,), reclaim=False,
+                     U=qpm.QP_BLOCK, clip=True)
+
+    status_map = {
+        OPTIMAL: ProblemStatus.OPTIMAL,
+        engine.DUAL_INFEASIBLE: ProblemStatus.DUAL_INFEASIBLE,
+        engine.ITER_LIMIT: ProblemStatus.STOPPED,
+    }
+    grad = vmap(lambda l, x: qpm._gradient(qlp(l), x))(qlpd, Q["x"])
+    y_all = vmap(lambda g, bs, bi: g.index_select(0, bs) @ bi)(grad, Q["basis"], Q["binv"])
+    p1 = S0["status"].cpu().numpy()
+    p1_it = S0["iterations"].cpu().numpy()
+    Qh = {k: v.cpu().numpy() for k, v in Q.items() if k != "binv"}
+    y_h = y_all.cpu().numpy()
+    out = []
+    for i, (mod, info) in enumerate(zip(models, infos)):
+        st = int(Qh["status"][i])
+        if p1[i] == engine.PRIMAL_INFEASIBLE:
+            sol = Solution(status=ProblemStatus.PRIMAL_INFEASIBLE)
+        elif p1[i] != OPTIMAL or st not in status_map:
+            sol = qpm.qp_simplex_solve(mod, options)  # per-instance fallback
+        else:
+            n = mod.num_cols
+            xs = Qh["x"][i][:n]
+            obj = float(mod.objective @ xs) + mod.objective_offset
+            Qm = mod.quadratic_objective
+            if Qm is not None:
+                obj += 0.5 * float(xs @ (Qm @ xs))
+            vstat = Qh["vstat"][i]
+            duals = y_h[i] * info.sense
+            dj_user = mod.objective + (Qm @ xs if Qm is not None else 0.0) - mod.matrix.T @ duals
+            sol = Solution(
+                status=status_map[st],
+                objective_value=obj,
+                primal=xs,
+                duals=duals,
+                reduced_costs=np.asarray(dj_user),
+                row_activity=np.asarray(mod.matrix @ xs),
+                iterations=int(Qh["iterations"][i]) + int(p1_it[i]),
+                column_status=np.array([_ENGINE_TO_VS[int(s)] for s in vstat[:n]],
+                                       dtype=np.int8),
+                row_status=np.array([_ENGINE_TO_VS[int(s)] for s in vstat[n:]],
+                                    dtype=np.int8),
+            )
+        mod.solution = sol
+        out.append(sol)
+    return out

@@ -599,6 +599,29 @@ def _pm1_eligible(model: Model) -> bool:
     return bool(np.all(npos <= 1) and np.all(nneg <= 1))
 
 
+def ell_widths(model: Model) -> tuple[int, int]:
+    """The ELL pad widths (kc, kr): the most nonzeros of a column and of a
+    row (+1 for the row's slack), each rounded up to a multiple of 8."""
+    A = model.matrix
+    kc = (max(int(np.diff(A.tocsc().indptr).max(initial=1)), 1) + 7) // 8 * 8
+    kr = (int(np.diff(A.tocsr().indptr).max(initial=0)) + 1 + 7) // 8 * 8
+    return kc, kr
+
+
+def ell_auto(model: Model, m: int, nt: int) -> bool:
+    """The auto choice of sparse ELL pricing: a memory escape hatch, not a
+    speed path. The JAX package takes it only when the dense f32 pricing
+    copy of G would pass 6 GB, at density <= 2%, and when the pads stay
+    within a quarter of each dimension (on the TPU v5e its gather matvecs
+    ran ~14x slower than the dense contraction at 2048x3584, 5%)."""
+    A = model.matrix
+    dens = A.nnz / max(1, A.shape[0] * A.shape[1])
+    if not (4 * m * nt > 6 << 30 and dens <= 0.02):
+        return False
+    kc, kr = ell_widths(model)
+    return kc <= m // 4 and kr <= nt // 4
+
+
 def block_geometry(model: Model):
     """The block-banded PRICE geometry of `model`'s standard form, or None.
 
@@ -668,9 +691,6 @@ def simplex_solve(
     if bucket > 0:
         raise NotImplementedError(
             "shape_bucket > 0 is not ported yet (ROADMAP.md queue 1: shape_bucket)")
-    if options.price_mode == "ell":
-        raise NotImplementedError(
-            "price_mode='ell' is not ported yet (ROADMAP.md queue 1: `ell` and `pe`)")
     device = resolve_device(getattr(options, "device", "cuda"))
     lp, info = to_standard_form(model, device=device)
     m, nt = lp.G.shape
@@ -743,6 +763,11 @@ def simplex_solve(
         use_pallas = bool(options.use_pallas_price)
 
     price_mode = options.price_mode
+    ell_kc = ell_kr = 0
+    if price_mode == "ell":
+        # an explicit request takes its pad widths from the auto choice's
+        # formula (the JAX driver leaves them 0 here and prices densely)
+        ell_kc, ell_kr = ell_widths(model)
     blk_nb = blk_h = blk_cb = 0
     blk_perm = None
     # "block" is opt-in, as in the JAX package
@@ -757,18 +782,10 @@ def simplex_solve(
             price_mode = "pm1"
         else:
             price_mode = "dense"
-            # the JAX package switches to sparse ELL pricing when the dense
-            # f32 pricing copy of G would not fit beside the inverse
-            A = model.matrix
-            dens = A.nnz / max(1, A.shape[0] * A.shape[1])
-            if 4 * m * nt > 6 << 30 and dens <= 0.02:
-                kc = (max(int(np.diff(A.tocsc().indptr).max(initial=1)), 1) + 7) // 8 * 8
-                kr = (int(np.diff(A.tocsr().indptr).max(initial=0)) + 1 + 7) // 8 * 8
-                if kc <= m // 4 and kr <= nt // 4:
-                    raise NotImplementedError(
-                        "this LP needs the sparse `ell` pricing, which is not "
-                        "ported yet (ROADMAP.md queue 1: `ell` and `pe`)")
-    if price_mode == "pm1":
+            if ell_auto(model, m, nt):
+                price_mode = "ell"
+                ell_kc, ell_kr = ell_widths(model)
+    if price_mode in ("pm1", "ell"):
         use_pallas = False  # the gathers replace the dense contraction
     # "block" KEEPS the K1 flag: K3 replaces K1 on the block route
 
@@ -808,11 +825,14 @@ def simplex_solve(
             # fused FTRAN+update kernel K2: opt-in, as in the JAX package
             use_pallas_pivot=getattr(options, "use_pallas_pivot", False),
             price_mode=price_mode,
+            price_ell_kc=ell_kc,
+            price_ell_kr=ell_kr,
             price_block_nb=blk_nb,
             price_block_h=blk_h,
             price_block_cb=blk_cb,
             inverse_dtype=inv_dtype,
             dual_ratio=dual_ratio,
+            pe_psi=getattr(options, "pe_psi", 0.5),
             # blocks of 8 gated pivots per host status check on the mixed
             # CUDA engine (the JAX package's TPU choice: there the loop
             # boundary measured ~39 us/pivot on the TPU v5e). Both pivot

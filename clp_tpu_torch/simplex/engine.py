@@ -39,6 +39,7 @@ from ..forms import StandardLP
 from ..ops.linalg import lu_refactor, lu_refactor32
 from ..ops.pivot import fused_pivot_update
 from ..ops.price import price_and_ratios, price_and_ratios_block
+from ..utils.prng import rademacher
 
 # status codes (match ProblemStatus where >= 0)
 CONTINUE = -1
@@ -71,11 +72,14 @@ class SimplexOptions:
     # ClpPrimalColumnSteepest — here a static branch in the body). Primal
     # modes mirror ClpPrimalColumnSteepest's mode family: devex, dantzig,
     # exact steepest edge (Forrest-Goldfarb update), partial (rotating-window
-    # candidate selection with full-pricing fallback). "pe" (Positive Edge)
-    # is not ported yet (ROADMAP.md queue 1: `ell` and `pe`).
-    dual_pivot: str = "steepest"  # "steepest" | "dantzig"
-    primal_pivot: str = "devex"  # "devex" | "dantzig" | "steepest" | "partial"
+    # candidate selection with full-pricing fallback). "pe" = Positive Edge
+    # (ClpPESimplex.hpp:45): a random-projection compatibility bias against
+    # degenerate pivots, psi = 0.5 selection; its signs are the JAX
+    # package's jax.random draw, bit for bit (utils/prng.py).
+    dual_pivot: str = "steepest"  # "steepest" | "dantzig" | "pe"
+    primal_pivot: str = "devex"  # "devex" | "dantzig" | "steepest" | "pe" | "partial"
     partial_window: int = 0  # 0 = auto (max(64, nt // 8))
+    pe_psi: float = 0.5  # Positive Edge bias threshold
     # fused PRICE kernel K1 (f32 pricing + f64 pivot verification;
     # ops/price.py; reference hot path: ClpPackedMatrix::transposeTimesByRow,
     # ClpPackedMatrix.cpp:706-1307). Off by default: the driver turns it on
@@ -97,9 +101,16 @@ class SimplexOptions:
     # (networks + their slacks). PRICE becomes two gathers (O(n) vs O(mn))
     # and the FTRAN column two binv column reads (reference:
     # ClpPlusMinusOneMatrix.hpp, ClpNetworkMatrix.hpp:12-16). The caller must
-    # have verified the structure. "ell" is not ported yet (ROADMAP.md
-    # queue 1: `ell` and `pe`).
-    price_mode: str = "dense"  # "dense" | "pm1" | "block"
+    # have verified the structure.
+    price_mode: str = "dense"  # "dense" | "pm1" | "ell" | "block"
+    # sparse ELL pricing ("ell" mode): PRICE, the flip flow and the PE
+    # matvec run as a gather, a multiply and a row sum over row-padded
+    # sparse forms of G (ell_forms) instead of dense contractions: memory
+    # traffic O(nnz) instead of O(m*nt). The pad widths are static, chosen
+    # by the driver from the host matrix (max nnz per column / per row,
+    # rounded up to 8); padding carries value 0 at index 0.
+    price_ell_kc: int = 0  # max nnz per column (0 = mode unavailable)
+    price_ell_kr: int = 0  # max nnz per row
     # "block" geometry (block-banded LPs: staircase/multi-period): nb
     # column groups, each covered by an H-row window — PRICE/FTRAN/matvec
     # become batched dense-tile ops (block_forms). Chosen by the driver
@@ -149,14 +160,6 @@ class SimplexState:
 
 
 def _check_supported(opts: SimplexOptions) -> None:
-    if opts.dual_pivot == "pe" or opts.primal_pivot == "pe":
-        raise NotImplementedError(
-            "Positive Edge pivot rules are not ported yet (ROADMAP.md queue 1: "
-            "`ell` and `pe`): they draw jax.random streams torch cannot reproduce")
-    if opts.price_mode not in ("dense", "pm1", "block"):
-        raise NotImplementedError(
-            f"price_mode={opts.price_mode!r} is not ported yet (ROADMAP.md queue 1: "
-            "`ell` and `pe`)")
     if opts.ablate:
         raise NotImplementedError(
             "the timing-only ablate gates are not ported (ROADMAP.md queue 1: "
@@ -166,6 +169,14 @@ def _check_supported(opts: SimplexOptions) -> None:
 def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """x[i] for a 0-dim device index, without a host sync."""
     return x.index_select(0, i.reshape(1)).reshape(())
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A @ x for a matrix A and a vector x, written x @ A.mT. On the CPU it
+    gives the bits of A @ x, and the same bits again under torch.func.vmap,
+    where A @ x turns into a batched product that sums in another order; so
+    a lane of the batched solvers (parallel/batch.py) is its single solve."""
+    return x @ A.mT
 
 
 def _code(value: int, like: torch.Tensor) -> torch.Tensor:
@@ -199,7 +210,7 @@ def recompute(lp: StandardLP, state: SimplexState, dual_bound) -> SimplexState:
     G, b, c = lp.G, lp.b, lp.c
     B = G.index_select(1, state.basis)
     xn = nonbasic_values(lp, state.vstat, dual_bound)
-    rhs = b - G @ xn
+    rhs = b - _mv(G, xn)
     cb = c.index_select(0, state.basis)
     if state.binv.dtype != G.dtype:
         binv32, ok = lu_refactor32(B)
@@ -208,7 +219,7 @@ def recompute(lp: StandardLP, state: SimplexState, dual_bound) -> SimplexState:
         # trouble spot: torch lets a 0-dim or f32 operand yield to the other
         # dtype, so every f32 <-> f64 crossing here is an explicit cast
         def prec(v):  # f32 preconditioner application, f64 in/out
-            return (binv32 @ v.to(f32)).to(G.dtype)
+            return _mv(binv32, v.to(f32)).to(G.dtype)
 
         def prec_t(v):
             return (v.to(f32) @ binv32).to(G.dtype)
@@ -216,9 +227,9 @@ def recompute(lp: StandardLP, state: SimplexState, dual_bound) -> SimplexState:
         xb = prec(rhs)
         y = prec_t(cb)
         for _ in range(3):
-            xb = xb + prec(rhs - B @ xb)
+            xb = xb + prec(rhs - _mv(B, xb))
             y = y + prec_t(cb - y @ B)
-        resid = (rhs - B @ xb).abs().amax() / (
+        resid = (rhs - _mv(B, xb)).abs().amax() / (
             1.0 + torch.clamp_min(rhs.abs().amax(), 0.0))
         ok = ok & torch.isfinite(resid) & (resid < 1e-9)
         binv_store = binv32
@@ -227,7 +238,7 @@ def recompute(lp: StandardLP, state: SimplexState, dual_bound) -> SimplexState:
         wcol = torch.ones_like(state.wcol)
     else:
         binv, ok = lu_refactor(B)
-        xb = binv @ rhs
+        xb = _mv(binv, rhs)
         y = cb @ binv
         binv_store = binv
         wcol = state.wcol
@@ -303,6 +314,80 @@ def _pm1_matvec(delta, pm1, m):
     out.index_add_(0, pos, delta)
     out.index_add_(0, neg, -delta)
     return out[:m]
+
+
+# --------------------------------------------------------------------------
+# sparse ELL forms (gather + multiply + row sum)
+# --------------------------------------------------------------------------
+
+
+def _top_abs(A: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-row indices of the k largest |A|, largest first, ties by lower
+    index: jax.lax.top_k's order, from a stable descending sort."""
+    return torch.sort(A.abs(), dim=1, descending=True, stable=True).indices[:, :k]
+
+
+def ell_forms(G, kc: int, kr: int, dtype=torch.float32):
+    """Row-padded sparse forms of G for gather-based matvecs.
+
+    Returns (col_val (nt,kc), col_idx, row_val (m,kr), row_idx): per-COLUMN
+    top-kc entries by |value| (covers every nonzero when kc >= max column
+    nnz; the driver guarantees this from the host matrix) and the same per
+    row. Padding slots carry value 0 at index 0, contributing nothing. Built
+    once per solve.
+    """
+    Gt = G.T.to(dtype)
+    cidx = _top_abs(Gt, kc)
+    cval = Gt.gather(1, cidx)
+    cidx = torch.where(cval != 0, cidx, 0).to(torch.int32)
+    cval = torch.where(cval != 0, cval, 0.0)
+    G32 = G.to(dtype)
+    ridx = _top_abs(G32, kr)
+    rval = G32.gather(1, ridx)
+    ridx = torch.where(rval != 0, ridx, 0).to(torch.int32)
+    rval = torch.where(rval != 0, rval, 0.0)
+    return cval, cidx, rval, ridx
+
+
+def _gather_sum(val, idx, x):
+    """sum_k val[i, k] * x[idx[i, k]]: a gather, then a row sum with no
+    scatter and no atomics, the same from call to call. On the CPU the k
+    slots are added in order, each by one fused multiply-add: that is how
+    XLA fuses the JAX package's multiply and row sum there (the same bits).
+    On the card one product and one row reduction (two launches where the
+    ordered sum takes k)."""
+    xg = x.to(val.dtype).index_select(0, idx.reshape(-1).to(torch.int64))
+    xg = xg.reshape(idx.shape)
+    if val.is_cuda:
+        return (val * xg).sum(dim=1)
+    acc = val.new_zeros(val.shape[0])
+    for k in range(val.shape[1]):
+        acc = torch.addcmul(acc, val[:, k], xg[:, k])
+    return acc
+
+
+def _ell_price(rho, ell):
+    """alpha = rho @ G: per-column gather of rho + weighted row sum."""
+    cval, cidx, _, _ = ell
+    return _gather_sum(cval, cidx, rho)
+
+
+def _ell_col(q, ell, m):
+    """Dense column G[:, q] from the column form. The JAX package adds the
+    kc slots into zeros; here the padding slots are sent to a spare entry m
+    and the slots are copied, not added: a column's nonzero rows are
+    distinct, so the values are the same and no atomics run."""
+    cval, cidx, _, _ = ell
+    v = cval.index_select(0, q.reshape(1))[0]
+    i = cidx.index_select(0, q.reshape(1))[0].to(torch.int64)
+    i = torch.where(v != 0, i, m)
+    return v.new_zeros(m + 1).index_copy_(0, i, v)[:m]
+
+
+def _ell_matvec(x, ell):
+    """G @ x: per-row gather of x + weighted row sum."""
+    _, _, rval, ridx = ell
+    return _gather_sum(rval, ridx, x)
 
 
 # --------------------------------------------------------------------------
@@ -434,7 +519,7 @@ def pivot_invariants(lp: StandardLP, opts: SimplexOptions):
 
 
 def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
-                   G32=None, pm1=None, blk=None, pre=None):
+                   G32=None, pm1=None, ell=None, blk=None, pre=None):
     """One dual pivot: price row -> BTRAN -> ratio test -> FTRAN -> update.
 
     When opts.use_pallas_price, PRICE + the Harris pass-1 scan run fused in
@@ -442,7 +527,9 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     or, given the block forms `blk` of a block-banded G (block_forms), in
     K3 against its f32 tiles; the chosen pivot is verified against the
     FTRAN value so pricing precision never affects correctness — only, at
-    worst, the pivot choice (an extra iteration).
+    worst, the pivot choice (an extra iteration). Given the sparse forms
+    `ell` (ell_forms), PRICE, the FTRAN column and the flip flow run as f32
+    gathers instead, and K1 stays off.
 
     When opts.inverse_dtype == "float32", binv arrives in f32 and all
     O(m^2) work against it (PRICE source row, FTRAN triple, rank-1 update)
@@ -475,6 +562,27 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     else:
         score = torch.where(
             cand, infeas * infeas / torch.clamp_min(state.weights, 1e-50), -_INF)
+    if opts.dual_pivot == "pe":
+        # Positive Edge: a random combination z of the dual-degenerate
+        # nonbasic columns FTRANs to ~0 in the compatible rows, where the
+        # ratio test is unlikely to return a zero-dj entering column (a
+        # degenerate dual step). One extra matvec pair per pivot.
+        deg = (state.vstat != BASIC) & (state.dj.abs() <= dtol) & (lp.l != lp.u)
+        z = torch.where(deg, rademacher(20210, state.iterations, nt, dt), 0.0)
+        if pm1 is not None:
+            gz = _pm1_matvec(z, pm1, m)
+        elif ell is not None:
+            gz = _ell_matvec(z, ell)
+        elif blk is not None:
+            gz = _blk_matvec(z, blk, m).to(dt)
+        else:
+            gz = _mv(G, z)
+        v = _mv(state.binv, gz.to(state.binv.dtype)).to(dt)
+        nrm = torch.sqrt(torch.clamp_min(torch.sum(z * z), 1.0))
+        compat = v.abs() <= 1e-8 * nrm
+        score_c = torch.where(compat, score, -_INF)
+        bests = torch.stack([score, score_c]).amax(dim=1)
+        score = torch.where(bests[1] >= opts.pe_psi * bests[0], score_c, score)
     r = torch.argmax(score)
     # ONE gather for every row-r scalar this pivot needs; r stays on the
     # device (x[r] with a tensor index would sync the host every pivot)
@@ -511,7 +619,7 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         a = sigma * alpha
         elig = ((at_lo & (a > pt)) | (at_up & (a < -pt))) & ~fixed
         theta_relaxed = torch.where(elig, th_b[:nt].to(dt), _INF)
-    elif opts.use_pallas_price:
+    elif opts.use_pallas_price and ell is None:
         cand_dir = (at_lo | at_up) & ~fixed
         alpha, theta_relaxed = price_and_ratios(
             rho, G if G32 is None else G32, state.dj, cand_dir, sgn,
@@ -523,6 +631,9 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     else:
         if pm1 is not None:
             alpha = _pm1_price(rho, pm1).to(dt)  # gathers only
+        elif ell is not None:
+            # sparse PRICE: memory traffic O(nnz) instead of O(m*nt)
+            alpha = _ell_price(rho, ell).to(dt)
         elif blk is not None:
             # block-banded PRICE: one batched (nb,H)x(nb,H,CB) product
             alpha = _blk_price(rho, blk, dt, nt)
@@ -624,10 +735,15 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     binv_fused = None  # set when the fused pivot kernel ran
     if pm1 is not None:
         abar = _pm1_ftran_col(state.binv, q, pm1).to(dt)
-        tau = (state.binv @ rho).to(dt)
-        flow = (state.binv @ _pm1_matvec(flip_delta, pm1, m).to(bd)).to(dt)
+        tau = _mv(state.binv, rho).to(dt)
+        flow = _mv(state.binv, _pm1_matvec(flip_delta, pm1, m).to(bd)).to(dt)
     else:
-        if blk is not None:
+        if ell is not None:
+            # sparse forms: the column from its pad, the flip flow as a
+            # row-gather matvec, O(nnz) instead of O(m*nt)
+            Gq = _ell_col(q, ell, m)
+            fdelta = _ell_matvec(flip_delta, ell)
+        elif blk is not None:
             # column and flow from the block form; in the mixed engine W is
             # f32 and its column is cast to the LP's dtype, as in JAX
             Gq = _blk_col(q, blk, m).to(dt)
@@ -637,7 +753,7 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
             Gq = Gf.index_select(1, q.reshape(1))[:, 0]
             # mixed engine: the m x nt contraction runs against the f32 G
             # copy; drift is covered by the f64 recompute at refactorization
-            fdelta = Gf @ flip_delta.to(Gf.dtype)
+            fdelta = _mv(Gf, flip_delta.to(Gf.dtype))
         triple = torch.stack([Gq.to(bd), rho.to(bd), fdelta.to(bd)], dim=1)
         if opts.use_pallas_pivot and mixed and bd == f32:
             # fused kernel K2: the 3-column FTRAN AND the rank-1 update in a
@@ -669,7 +785,7 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     # accuracy cross-check (reference: dual checks alpha vs ftran value).
     # f32 pricing widens the acceptable discrepancy; the FTRAN value
     # abar_r is the value actually used for the pivot either way.
-    acc_tol = 2e-4 if (opts.use_pallas_price or mixed) else 1e-8
+    acc_tol = 2e-4 if (opts.use_pallas_price or mixed or ell is not None) else 1e-8
     acc_bad = (alpha_rq - abar_r).abs() > acc_tol * (1.0 + abar_r.abs())
     # f32 FTRAN values below ~1e-6 relative are noise: treat them as
     # too-small pivots (forces a fresh f64 factorization instead)
@@ -801,6 +917,8 @@ def primal_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     im = torch.arange(m, device=dev)
 
     def _bmm(x, y):  # product in binv's own dtype at full f32 accuracy
+        if x.ndim == 2 and y.ndim == 1:
+            return _mv(x.to(bd), y.to(bd)).to(dt)
         return (x.to(bd) @ y.to(bd)).to(dt)
 
     lb, ub = _basic_bounds(lp, state.basis)
@@ -839,6 +957,19 @@ def primal_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         in_win = ((idx - start) % nt) < W
         score_w = torch.where(in_win, score, -_INF)
         score = torch.where((score_w > -_INF).any(), score_w, score)
+    elif opts.primal_pivot == "pe":
+        # Positive Edge (ClpPESimplex.hpp:45): a column is compatible when
+        # its FTRAN has ~zero overlap with the degenerate basic rows, so
+        # entering it moves the objective. Random projection test.
+        deg_rows = (below.abs() <= ptol) | (above.abs() <= ptol)
+        z = torch.where(deg_rows, rademacher(777, state.iterations, m, dt), 0.0)
+        w = _bmm(z, state.binv)
+        wg = _pm1_price(w, pm1).to(dt) if pm1 is not None else _bmm(w, Gp_)
+        nrm = torch.sqrt(torch.clamp_min(torch.sum(z * z), 1.0))
+        compat = wg.abs() <= 1e-8 * nrm
+        score_c = torch.where(compat, score, -_INF)
+        bests = torch.stack([score, score_c]).amax(dim=1)
+        score = torch.where(bests[1] >= opts.pe_psi * bests[0], score_c, score)
     q = torch.argmax(score)
     any_elig = elig.any()
 
@@ -1057,23 +1188,30 @@ def _pivot_chunk(lp, st: SimplexState, opts: SimplexOptions, iteration_fn):
 
 
 def _run_loop(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
-              iteration_fn, verify_fn):
+              iteration_fn, verify_fn, max_chunks: int = 0):
     """outer refactorize loop + inner pivot loop (gutsOfDual structure).
 
     An OPTIMAL claim from the inner loop is only accepted after a fresh
     refactorization confirms it (`verify_fn`) — incremental state drifts,
     and the reference re-verifies the same way before finishing
     (statusOfProblemInDual, ClpSimplexDual.cpp:4996).
+
+    max_chunks > 0 bounds the outer loop: the solve returns (state,
+    verified) after that many refactor-chunks even if unfinished (status
+    CONTINUE, claims unverified), as the JAX package's bounded mode does.
     """
     st = state
     stalls = 0
     verified = False
+    rounds = 0
     while True:
         status, iters, _ = _flags(st)
         claim = status in (OPTIMAL, PRIMAL_INFEASIBLE, DUAL_INFEASIBLE)
         running = status == CONTINUE or (claim and not verified)
-        if not (running and iters < opts.max_iterations and stalls < 3):
+        if not (running and iters < opts.max_iterations and stalls < 3
+                and (max_chunks <= 0 or rounds < max_chunks)):
             break
+        rounds += 1
         iters_before = iters
         claimed_terminal = status in (PRIMAL_INFEASIBLE, DUAL_INFEASIBLE)
         st = recompute(lp, st, opts.dual_bound)
@@ -1108,6 +1246,8 @@ def _run_loop(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     status, iters, _ = _flags(st)
     if status == CONTINUE and iters >= opts.max_iterations:
         st = dataclasses.replace(st, status=_code(ITER_LIMIT, st.status))
+    if max_chunks > 0:
+        return st, verified
     return st
 
 
@@ -1115,11 +1255,15 @@ def _dual_iteration_fn(lp: StandardLP, opts: SimplexOptions):
     """Dual iteration closure; hoists loop-invariant matrix forms out of
     the pivot loop (the f32 G copy for K1/mixed-precision pricing, built
     once per solve and never per pivot, the block forms of a block-banded
-    G, or the +-1 index arrays for multiply-free pricing)."""
+    G, the sparse ELL forms, or the +-1 index arrays for multiply-free
+    pricing)."""
     _check_supported(opts)
     pre = pivot_invariants(lp, opts)
     if opts.price_mode == "pm1" and not opts.use_pallas_price:
         return partial(dual_iteration, pm1=pm1_indices(lp.G), pre=pre)
+    if opts.price_mode == "ell" and opts.price_ell_kc > 0:
+        return partial(dual_iteration, pre=pre,
+                       ell=ell_forms(lp.G, opts.price_ell_kc, opts.price_ell_kr))
     if opts.price_mode == "block" and opts.price_block_nb > 0:
         # W in f32 when the inverse is f32 or K3 is on, else in G's dtype;
         # no f32 copy of the whole G outlives block_forms
@@ -1147,6 +1291,14 @@ def _primal_iteration_fn(lp: StandardLP, opts: SimplexOptions):
 
 def dual_solve(lp: StandardLP, state: SimplexState, opts: SimplexOptions) -> SimplexState:
     return _run_loop(lp, state, opts, _dual_iteration_fn(lp, opts), _verify_dual_claim)
+
+
+def dual_solve_rounds(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
+                      rounds: int):
+    """Bounded dual solve: at most `rounds` refactor-chunks, the full claim
+    protocol inside. Returns (state, verified: bool)."""
+    return _run_loop(lp, state, opts, _dual_iteration_fn(lp, opts),
+                     _verify_dual_claim, max_chunks=rounds)
 
 
 def primal_solve(lp: StandardLP, state: SimplexState, opts: SimplexOptions) -> SimplexState:

@@ -10,20 +10,20 @@ Mirrors the reference's dispatcher flow (ClpSolve.cpp:845-4070):
 
 The port runs DUAL_SIMPLEX, PRIMAL_SIMPLEX (with the idiot or triangular
 crash start), PRIMAL_IDIOT, BARRIER, BARRIER_NO_CROSS, SPRINT, PDLP (with
-its simplex polish), NETWORK, GUB and the dualize of tall LPs, and
-AUTOMATIC wherever it lands but DECOMPOSE; a quadratic objective on the
-barrier or on the reduced-gradient QP simplex (simplex/qp.py), and
-piecewise-linear costs on the in-engine primal (piecewise.py). The routes
-it still lacks raise NotImplementedError naming their ROADMAP.md queue 1
-item: DECOMPOSE, `ell` / `pe` pricing, `shape_bucket`, a device mesh
-(multi-device); batching has no entry point here yet.
+its simplex polish), NETWORK, GUB, DECOMPOSE (Benders over the batched
+IPM) and the dualize of tall LPs, and AUTOMATIC wherever it lands; a
+quadratic objective on the barrier or on the reduced-gradient QP simplex
+(simplex/qp.py), and piecewise-linear costs on the in-engine primal
+(piecewise.py). `solve_batch` solves many same-shape models as one batch.
+The routes it still lacks raise NotImplementedError naming their
+ROADMAP.md queue 1 item: `shape_bucket` and a device mesh (multi-device).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,12 +33,6 @@ from .device import on_accelerator, resolve_device
 from .forms import expand_ipm_solution, to_ipm_form
 from .model import Model, Solution
 from .options import SolveOptions
-
-# what the JAX package runs for each AUTOMATIC choice the port lacks
-_AUTO_UNPORTED = {
-    SolveMethod.DECOMPOSE: "structure.py, decompose.py",
-}
-
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
@@ -678,9 +672,6 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
                   if method in (SolveMethod.PRIMAL_SIMPLEX,
                                 SolveMethod.PRIMAL_IDIOT)
                   else SolveMethod.DUAL_SIMPLEX)
-    elif method in _AUTO_UNPORTED:
-        raise _not_ported(f"method {method.name}",
-                          f"AUTOMATIC destinations ({_AUTO_UNPORTED[method]})")
 
     # --- presolve ---
     # QP: Q-aware transforms only (fixed columns fold Q terms into the rim;
@@ -742,9 +733,6 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
         ai = _auto_idiot(work)
         method = _auto_method(work, options, idiot_hint=ai)
         auto_idiot_dual = method == SolveMethod.DUAL_SIMPLEX and ai
-        if method in _AUTO_UNPORTED:
-            raise _not_ported(f"AUTOMATIC's choice {method.name}",
-                              f"AUTOMATIC destinations ({_AUTO_UNPORTED[method]})")
 
     t_phase = time.time()
     # --- scaling (reference: ClpModel::scaling modes, applied pre-solve) ---
@@ -846,6 +834,14 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
         else:
             # presolve/user edits broke the +-1 structure: general dual path
             sol = _solve_simplex(work, options, dual=True)
+    elif method == SolveMethod.DECOMPOSE:
+        from .structure import auto_decompose_solve
+
+        sol = auto_decompose_solve(work, options)
+        if sol is None:
+            # detection mis-fire / decomposition failure: standard route
+            # (decomposeType == 0 -> dual(), ClpSolve.cpp:4914-4916)
+            sol = _solve_simplex(work, options, dual=True)
     elif method == SolveMethod.GUB:
         from .gub import solve_gub
 
@@ -928,3 +924,20 @@ def initial_solve(model: Model, options: Optional[SolveOptions] = None) -> Solut
         _fire(model, Event.SOLUTION, objective=sol.objective_value)
     _fire(model, Event.END_SOLVE, status=sol.status, time=sol.solve_time)
     return sol
+
+
+def solve_batch(
+    models: Sequence[Model],
+    options: Optional[SolveOptions] = None,
+    mesh=None,
+) -> list[Solution]:
+    """Solve many same-shape LPs (or QPs) as one batch.
+
+    All models must share (m, n); they are stacked on a leading scenario
+    axis and run through the lane-wise batched IPM (parallel/batch.py). A
+    device mesh is not ported (ROADMAP.md queue 1: multi-device).
+    """
+    from .parallel.batch import solve_batch_ipm
+
+    options = options or SolveOptions()
+    return solve_batch_ipm(models, options, mesh)

@@ -15,9 +15,9 @@ the linking columns:
 
 Detection is a connected-components pass over the sparsity pattern after
 removing the highest-degree columns at a few trial thresholds — O(nnz)
-per trial, run only from the AUTOMATIC method chooser. The decomposition
-solve the detection routes to is not ported yet (ROADMAP.md queue 1:
-AUTOMATIC destinations, DECOMPOSE).
+per trial, run only from the AUTOMATIC method chooser, which routes a
+detected model to `auto_decompose_solve` (Benders over the batched IPM).
+The block-angular (Dantzig-Wolfe) shape is detected the same way over rows.
 """
 
 from __future__ import annotations
@@ -28,8 +28,9 @@ from typing import Optional
 import numpy as np
 import scipy.sparse as sp
 
-from .constants import INF
-from .model import Model
+from .constants import INF, ProblemStatus, SolveMethod
+from .model import Model, Solution
+from .options import SolveOptions
 
 
 # ---------------------------------------------------------------------------
@@ -234,4 +235,170 @@ def detect_two_stage(
             scenario_rows=scenario_rows,
             scenario_cols=scenario_cols,
         )
+    return None
+
+
+def build_two_stage(model: Model, det: TwoStageDetection):
+    """Materialize the TwoStageLP from the flat model + detection map."""
+    from .decompose import TwoStageLP
+
+    A = model.matrix.tocsc()
+    x = det.x_cols
+    S = len(det.scenario_rows)
+    m2 = det.scenario_rows[0].size
+    n1 = x.size
+    n2 = det.scenario_cols[0].size
+    T = np.zeros((S, m2, n1))
+    W = np.zeros((S, m2, n2))
+    h = np.zeros((S, m2))
+    q = np.zeros((S, n2))
+    for s in range(S):
+        r, c = det.scenario_rows[s], det.scenario_cols[s]
+        T[s] = A[r][:, x].toarray()
+        W[s] = A[r][:, c].toarray()
+        h[s] = model.row_lower[r]
+        q[s] = model.objective[c]
+    return TwoStageLP(
+        c=model.objective[x],
+        A=sp.csc_matrix(A[det.stage1_rows][:, x]),
+        row_lower=model.row_lower[det.stage1_rows],
+        row_upper=model.row_upper[det.stage1_rows],
+        col_lower=model.col_lower[x],
+        col_upper=model.col_upper[x],
+        T=T,
+        W=W,
+        h=h,
+        q=q,
+        prob=np.ones(S),  # the flat objective already carries p_s * q_s
+    )
+
+
+# ---------------------------------------------------------------------------
+# block-angular (Dantzig-Wolfe) detection
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BlockAngularDetection:
+    linking_rows: np.ndarray
+    block_rows: list  # per block: row indices
+    block_cols: list  # per block: column indices
+
+
+def detect_block_angular(
+    model: Model,
+    min_blocks: int = 2,
+    max_link_frac: float = 0.25,
+) -> Optional[BlockAngularDetection]:
+    """Detect linking rows whose removal splits the columns into
+    independent blocks (the solveDW shape: one master row block touching
+    every column block, ClpSolve.cpp:5323-5352)."""
+    m, n = model.num_rows, model.num_cols
+    if m < 16 or n < 16 or model.num_elements == 0:
+        return None
+    if model.quadratic_objective is not None:
+        return None
+    A_csr = model.matrix.tocsr()
+    A_csr.sort_indices()
+    degree = np.asarray(A_csr.getnnz(axis=1)).ravel()
+    order = np.argsort(degree, kind="stable")[::-1]
+    row_of_nnz = np.repeat(np.arange(m, dtype=np.int64), degree)
+    cols_nnz = A_csr.indices.astype(np.int64)
+
+    for frac in (1 / 64, 1 / 32, 1 / 16, 1 / 8, max_link_frac):
+        k = max(1, int(m * frac))
+        if k > m * max_link_frac:
+            break
+        removed = np.zeros(m, dtype=bool)
+        removed[order[:k]] = True
+        labels = _col_components(row_of_nnz, cols_nnz, removed, m, n)
+        col_nnz_surv = np.bincount(cols_nnz[~removed[row_of_nnz]], minlength=n)
+        # columns appearing only in linking rows break the block form
+        if np.any(col_nnz_surv == 0):
+            continue
+        comp_ids = np.unique(labels)
+        if comp_ids.size < min_blocks:
+            continue
+        # rows (non-removed) belong to the component of their columns
+        first_col = np.full(m, -1, dtype=np.int64)
+        nzr = np.flatnonzero(np.diff(A_csr.indptr) > 0)
+        first_col[nzr] = A_csr.indices[A_csr.indptr[nzr]]
+        row_label = np.where(first_col >= 0, labels[first_col], -1)
+        block_rows, block_cols = [], []
+        ok = True
+        for cid in comp_ids:
+            r_idx = np.flatnonzero(~removed & (row_label == cid))
+            if r_idx.size == 0:
+                ok = False
+                break
+            block_rows.append(r_idx)
+            block_cols.append(np.flatnonzero(labels == cid))
+        if not ok:
+            continue
+        return BlockAngularDetection(
+            linking_rows=np.sort(order[:k]),
+            block_rows=block_rows,
+            block_cols=block_cols,
+        )
+    return None
+
+
+# ---------------------------------------------------------------------------
+# auto-decomposition solve
+# ---------------------------------------------------------------------------
+
+
+def auto_decompose_solve(model: Model, options: SolveOptions) -> Optional[Solution]:
+    """Detect structure, run the matching decomposition, assemble a full
+    flat-model point, and FINISH it with the engines' verified path.
+
+    Returns None whenever detection, the decomposition, or the verified
+    finish does not pan out; the caller then takes the standard method
+    (decomposeType == 0 -> dual(), ClpSolve.cpp:4914-4916). Only the
+    decomposition's own failures (DecompositionError, a non-OPTIMAL
+    result) fall back: the JAX package catches every RuntimeError here,
+    which in torch would also catch CUDA errors, so those propagate.
+    """
+    from .decompose import DecompositionError, benders_solve, solve_scenarios
+
+    det = detect_two_stage(model)
+    if det is None:
+        return None
+    try:
+        ts = build_two_stage(model, det)
+        bsol, x = benders_solve(ts, options)
+        if bsol.status != ProblemStatus.OPTIMAL or x is None:
+            return None
+        # the scenario recourse at the final x, in one batched call
+        ys = solve_scenarios(ts, x, options).x.numpy()  # (S, n2)
+    except DecompositionError:
+        return None
+
+    # assemble the flat primal point
+    primal = np.zeros(model.num_cols)
+    primal[det.x_cols] = x
+    for s in range(len(det.scenario_rows)):
+        primal[det.scenario_cols[s]] = ys[s]
+
+    # verified finish from the assembled point (the PDLP-polish pattern):
+    # a values-pass dual at dense scale, the crunch polish beyond
+    warm = Solution(primal=primal, row_activity=model.matrix @ primal)
+    dense_fits = 4 * model.num_rows * (model.num_rows + model.num_cols) <= 4 << 30
+    inner = dataclasses.replace(options, method=SolveMethod.DUAL_SIMPLEX)
+    if model.num_rows < 2048 and dense_fits:
+        from .simplex.driver import simplex_solve
+
+        fin = simplex_solve(model, inner, dual=True, warm=warm)
+        return fin if fin.status == ProblemStatus.OPTIMAL else None
+    from .bigsolve import crunch_polish
+
+    approx = Solution(
+        status=ProblemStatus.OPTIMAL,
+        objective_value=float(model.objective @ primal) + model.objective_offset,
+        primal=primal,
+        row_activity=np.asarray(model.matrix @ primal),
+    )
+    fin = crunch_polish(model, inner, approx)
+    if fin is not None and fin.status == ProblemStatus.OPTIMAL:
+        return fin
     return None

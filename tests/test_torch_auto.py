@@ -1,15 +1,13 @@
 """Port parity for the AUTOMATIC method choice: `_auto_method`, `_auto_idiot`
 and the GUB and two-stage detection it reads return what the JAX package's
 do on the same LPs; `initial_solve` then gives the JAX package's status and
-objective on each destination the port has (NETWORK, GUB, SPRINT, the
-idiot-warm dual, the dualize of a tall LP), and on DECOMPOSE, which it
-lacks, raises NotImplementedError naming its ROADMAP item."""
+objective on each destination (NETWORK, GUB, SPRINT, the idiot-warm dual,
+the dualize of a tall LP, and DECOMPOSE)."""
 
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.gub import detect_gub as jax_detect_gub
@@ -24,16 +22,9 @@ from clp_tpu_torch.structure import detect_two_stage
 from tests.test_decompose import _flat_two_stage
 from tests.test_gub import make_gub_lp
 from tests.test_network import make_mcf
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _port_model(mj):
@@ -82,18 +73,13 @@ def test_auto_method_matches_jax(name):
 @pytest.mark.parametrize("name", sorted(n for n, v in LPS.items() if v[2]))
 def test_unported_auto_destination_raises_naming_it(name):
     """Each AUTOMATIC destination the JAX package routes to: the port gives
-    its status and objective (1e-9 relative), or, for DECOMPOSE, which it
-    has not ported, raises naming the module. (The name is from when every
-    case raised.)"""
+    its status and objective (1e-9 relative). (The name is from when every
+    case raised; DECOMPOSE was the last, until its port.)"""
     make, expect, item = LPS[name]
     mj = make()
     mt = _port_model(mj)
     opts = clp_tpu_torch.SolveOptions(device="cpu")
     opts.presolve.enabled = False  # the choice is made on the LP as given
-    if expect == "DECOMPOSE":
-        with pytest.raises(NotImplementedError, match=f"AUTOMATIC destinations.*{item}"):
-            clp_tpu_torch.initial_solve(mt, opts)
-        return
     oj = clp_tpu.SolveOptions()
     oj.presolve.enabled = False
     sj = clp_tpu.initial_solve(mj, oj)

@@ -9,7 +9,6 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.forms import to_ipm_form as jax_ipm_form
@@ -25,16 +24,9 @@ from clp_tpu_torch.interior import IPMOptions, ipm_solve
 from clp_tpu_torch.ops import linalg as tlin
 from clp_tpu_torch.solve import _rcm_band_plan
 from clp_tpu_torch.utils import generators as tgen
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _t(a):

@@ -15,7 +15,6 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.forms import to_standard_form as jax_standard_form
@@ -33,16 +32,10 @@ from clp_tpu_torch.simplex import engine as te
 from clp_tpu_torch.utils import generators as tgen
 
 from test_torch_cuda import assert_price_close
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
+set_worker_threads()
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
 
 STAIR = (8, 32, 72)  # staircase_lp(nblocks, bm, bn): 256 x 576, standard form 256 x 832
 

@@ -5,7 +5,6 @@ crash="idiot"/"triangular") against the JAX package on the same LPs."""
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 import jax.numpy as jnp
 
 import clp_tpu
@@ -19,16 +18,9 @@ from clp_tpu.utils import generators as jgen
 import clp_tpu_torch
 from clp_tpu_torch import crash
 from tests.test_torch_auto import _covering_lp, _port_model
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _descent_inputs(seed):

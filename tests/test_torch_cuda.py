@@ -571,3 +571,120 @@ def test_dynamic_swaps_on_card_match_cpu(cuda_device):
     for k in ("rounds", "swaps", "working_set"):
         assert ig[k] == ic[k], k
     assert abs(sg.objective_value - sc.objective_value) <= 1e-9 * (1 + abs(sc.objective_value))
+
+
+def _lane_models(B=8, m=40, n=70):
+    """B perturbed-RHS copies of random_lp(m, n)."""
+    from clp_tpu_torch.utils.generators import random_lp
+
+    base = random_lp(m, n, seed=5)
+    models = []
+    for k in range(B):
+        mdl = base.copy()
+        mdl.row_upper = np.where(np.isfinite(mdl.row_upper),
+                                 mdl.row_upper * (1 + 0.02 * k), mdl.row_upper)
+        models.append(mdl)
+    return models
+
+
+def _batch_lanes(dev, B=8, m=40, n=70):
+    """B perturbed-RHS copies of random_lp(m, n) as one batch on `dev`."""
+    from clp_tpu_torch.parallel import batch as pb
+
+    lp, _ = pb.stack_models_simplex(_lane_models(B, m, n), dev)
+    return pb._lpd(lp)
+
+
+def test_vmapped_dual_pivots_on_card_match_cpu(cuda_device):
+    """200 vmapped dual pivots on B = 8 lanes, on the card and on the CPU:
+    a lane frozen from the start keeps its state bit for bit while the
+    others pivot. Each lane then runs to its end: the same status and
+    objective on both (the pivot paths may part where the two sum in other
+    orders; on the H100 two of the eight did within 200 pivots)."""
+    from clp_tpu_torch.parallel import batch as pb
+    from clp_tpu_torch.simplex import engine
+
+    opts = engine.SimplexOptions()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        E = pb._Lanes(_batch_lanes(dev), opts)
+        S = pb._bprep(E, E.initial_state())
+        frozen = {k: v[3].clone() for k, v in S.items()}
+        run = torch.ones(8, dtype=torch.bool, device=dev)
+        run[3] = False
+        for _ in range(200):
+            S = pb.gate(run & (S["status"] == engine.CONTINUE), E.dual_step(S), S)
+        for k, v in S.items():
+            assert torch.equal(v[3], frozen[k]), k
+        S, _ = pb.lanes_run(S, E.recompute, E.verify_dual, E.dual_step, opts)
+        out[dev] = (S["status"].cpu(), E.objective(S).cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert (out["cpu"][0] == engine.OPTIMAL).all()
+    assert torch.allclose(out["cuda"][1], out["cpu"][1], rtol=1e-9, atol=1e-9)
+
+
+def test_batched_lanes_on_card_match_their_single_solves(cuda_device):
+    """The compacting batched dual loop on the card against engine.dual_solve
+    on each lane alone, also on the card: the same status and objective for
+    every lane. Where a lane took its single solve's number of pivots it
+    took its path: the same final basis and x_B. (The CPU test holds them
+    bit for bit; on the card the batched and the single products may sum
+    in other orders.)"""
+    from clp_tpu_torch.forms import to_standard_form
+    from clp_tpu_torch.parallel import batch as pb
+    from clp_tpu_torch.simplex import engine
+
+    opts = engine.SimplexOptions()
+    models = _lane_models()
+    E = pb._Lanes(_batch_lanes(cuda_device), opts)
+    S = pb._compacting_dual_loop(E, E.initial_state())
+    obj = E.objective(S).cpu()
+    for i, mdl in enumerate(models):
+        lp, _ = to_standard_form(mdl, device=cuda_device)
+        st = engine.initial_state(lp, opts)
+        st = engine.recompute(lp, st, opts.dual_bound)
+        st = engine.make_dual_feasible(lp, st, opts)
+        st = engine.dual_solve(lp, st, opts)
+        assert int(S["status"][i]) == int(st.status) == engine.OPTIMAL, i
+        xn = engine.nonbasic_values(lp, st.vstat, opts.dual_bound)
+        single = float(lp.c.index_select(0, st.basis) @ st.xb + lp.c @ xn)
+        assert abs(float(obj[i]) - single) <= 1e-9 * (1 + abs(single)), i
+        if int(S["iterations"][i]) == int(st.iterations):
+            assert torch.equal(torch.sort(S["basis"][i]).values,
+                               torch.sort(st.basis).values), i
+            assert torch.allclose(S["xb"][i], st.xb, rtol=1e-9, atol=1e-9), i
+
+
+def test_batched_ipm_on_card_matches_cpu(cuda_device):
+    """The lane-wise batched IPM on the card and on the CPU: every lane the
+    same iteration count and its objective within 1e-9 relative."""
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.parallel.batch import solve_batch_ipm
+    from clp_tpu_torch.utils.generators import random_lp
+
+    rng = np.random.default_rng(1)
+    base = random_lp(48, 72, seed=0)
+    models = []
+    for _ in range(6):
+        mdl = base.copy()
+        shift = np.abs(rng.uniform(0, 0.05, mdl.num_rows))
+        mdl.row_lower = np.where(mdl.row_lower > -1e29, mdl.row_lower - shift, mdl.row_lower)
+        mdl.row_upper = np.where(mdl.row_upper < 1e29, mdl.row_upper + shift, mdl.row_upper)
+        models.append(mdl)
+    out = {dev: solve_batch_ipm([m.copy() for m in models], SolveOptions(device=dev))
+           for dev in ("cpu", "cuda")}
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.status == b.status
+        assert a.iterations == b.iterations
+        assert abs(a.objective_value - b.objective_value) <= 1e-9 * (1 + abs(b.objective_value))
+
+
+def test_pe_signs_on_card_match_cpu(cuda_device):
+    from clp_tpu_torch.utils.prng import rademacher
+
+    for seed in (20210, 777):
+        for it in (0, 1, 12345):
+            for n in (1, 7, 6656):
+                d = torch.tensor(it, dtype=torch.int32)
+                assert torch.equal(rademacher(seed, d.to(cuda_device), n).cpu(),
+                                   rademacher(seed, d, n))

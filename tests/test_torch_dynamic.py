@@ -8,7 +8,6 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.colgen import column_generation as jax_column_generation
@@ -22,16 +21,9 @@ from clp_tpu_torch.constants import INF, ProblemStatus, SolveMethod
 from clp_tpu_torch.dynamic import ExplicitColumnSource, dynamic_simplex_solve
 from tests.test_dynamic import _CuttingStockSource
 from tests.test_mps import _linprog
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _assert_same(got, want):

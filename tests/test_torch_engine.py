@@ -8,7 +8,6 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from clp_tpu.forms import to_standard_form as jax_standard_form
 from clp_tpu.simplex import engine as je
@@ -18,16 +17,9 @@ from clp_tpu_torch import convert
 from clp_tpu_torch.forms import to_standard_form
 from clp_tpu_torch.simplex import engine as te
 from clp_tpu_torch.utils import generators as tgen
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _fields(x) -> dict:

@@ -6,7 +6,6 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
-from threadpoolctl import threadpool_limits
 
 from clp_tpu.forms import to_standard_form as jax_standard_form
 from clp_tpu.model import Model as JaxModel
@@ -17,16 +16,9 @@ from clp_tpu_torch.model import Model as TorchModel
 from clp_tpu_torch.simplex import engine as te
 
 from test_torch_engine import _jax_start, _objective, _torch_start, solve_both
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 # The devex update sets w_j = alpha_j^2 w_q / alpha_rq^2 along the pivot

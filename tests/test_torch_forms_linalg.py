@@ -5,7 +5,6 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from clp_tpu.forms import to_standard_form as jax_standard_form
 from clp_tpu.ops import linalg as jax_linalg
@@ -17,16 +16,10 @@ from clp_tpu_torch.forms import to_standard_form
 from clp_tpu_torch.ops import linalg
 from clp_tpu_torch.ops.linalg import lu_refactor, lu_refactor32
 from clp_tpu_torch.utils import generators as tgen
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
+set_worker_threads()
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
 
 FAMILIES = {
     "random": ("random_lp", (12, 20), {"seed": 3}),

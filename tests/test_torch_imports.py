@@ -105,7 +105,9 @@ def test_fp32_precision_guard():
 
 # the modules each slice added, which the two tests above must cover
 SLICE_MODULES = ["clp_tpu_torch.simplex.qp", "clp_tpu_torch.dynamic",
-                 "clp_tpu_torch.colgen", "clp_tpu_torch.piecewise", "clp_tpu_torch.slp"]
+                 "clp_tpu_torch.colgen", "clp_tpu_torch.piecewise", "clp_tpu_torch.slp",
+                 "clp_tpu_torch.parallel.batch", "clp_tpu_torch.parallel.racing",
+                 "clp_tpu_torch.decompose", "clp_tpu_torch.utils.prng"]
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
@@ -116,15 +118,10 @@ def test_slice_modules_are_checked(name):
 
 
 @pytest.mark.parametrize("kw, match", [
-    ({"method": "DECOMPOSE"}, "decompose"),
-    ({"dual_pivot": "pesteepest"}, "pe"),
-    ({"price_mode": "ell"}, "ell"),
     ({"shape_bucket": 64}, "shape_bucket"),
     ({"method": "SPRINT", "devices": ["cpu", "cpu"]}, "multi-device"),
-    ({"method": "PRIMAL_SIMPLEX", "primal_pivot": "pe"}, "pe"),
     ({"method": "BARRIER_NO_CROSS", "shape_bucket": 64}, "shape_bucket"),
-], ids=["decompose", "pesteepest", "ell", "shape_bucket", "sprint-devices", "primal-pe",
-        "qp-shape_bucket"])
+], ids=["shape_bucket", "sprint-devices", "qp-shape_bucket"])
 def test_unported_routes_raise(kw, match):
     import scipy.sparse as sp
 
@@ -139,6 +136,27 @@ def test_unported_routes_raise(kw, match):
         model.load_quadratic_objective(sp.identity(model.num_cols, format="csc"))
     with pytest.raises(NotImplementedError, match=match):
         initial_solve(model, SolveOptions(device="cpu", **kw))
+
+
+@pytest.mark.parametrize("entry", ["solve_batch", "batch_dual", "batch_qp", "racing"])
+def test_device_meshes_raise_multi_device(entry):
+    """A device mesh, or a race over several devices, is queue 1's
+    multi-device item."""
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.parallel import batch, racing
+    from clp_tpu_torch.solve import solve_batch
+    from clp_tpu_torch.utils.generators import random_lp
+
+    models = [random_lp(6, 9, seed=2), random_lp(6, 9, seed=3)]
+    opts = SolveOptions(device="cpu")
+    call = {
+        "solve_batch": lambda: solve_batch(models, opts, mesh=object()),
+        "batch_dual": lambda: batch.solve_batch_dual_simplex(models, opts, mesh=object()),
+        "batch_qp": lambda: batch.solve_batch_qp_simplex(models, opts, mesh=object()),
+        "racing": lambda: racing.racing_solve(models[0], devices=["cpu", "cpu"]),
+    }[entry]
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        call()
 
 
 def test_ablate_gates_raise():

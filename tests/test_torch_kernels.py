@@ -12,7 +12,6 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from clp_tpu.ops.pallas_pivot import fused_pivot_update as jax_pivot
 from clp_tpu.ops.pallas_price import (
@@ -23,16 +22,9 @@ from clp_tpu_torch.ops.pivot import fused_pivot_update, fused_pivot_update_refer
 from clp_tpu_torch.ops.price import price_and_ratios, price_and_ratios_reference
 
 from test_torch_cuda import assert_price_close, pivot_inputs, price_inputs
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["G32", "G64"])

@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.network import (
@@ -24,16 +23,9 @@ import clp_tpu_torch
 from clp_tpu_torch import network
 from tests.test_network import make_mcf
 from tests.test_torch_auto import _port_model
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _mcf(seed, ranges=False, sense=1.0):

@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
-from threadpoolctl import threadpool_limits
 import jax.numpy as jnp
 
 import clp_tpu
@@ -25,16 +24,9 @@ from clp_tpu_torch.bigsolve import crunch_polish
 from clp_tpu_torch.convert import ell_from_numpy
 from tests.test_bigsolve import _sparse_feasible_lp
 from tests.test_torch_auto import _port_model
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _scaled_problem(seed=1):

@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.piecewise import (
@@ -27,16 +26,9 @@ from clp_tpu_torch.piecewise import (
 )
 from tests.test_piecewise import _rand_lp
 from tests.test_torch_qp import port_model
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _random_case(seed, sense, lo):

@@ -11,7 +11,6 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 from clp_tpu.ops.pallas_price import (
     price_and_ratios as jax_price,
@@ -30,16 +29,9 @@ from clp_tpu_torch.ops.price import (
 )
 
 from test_torch_cuda import assert_price_close, block_price_inputs
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def assert_splits_tile(plan, depth, min_rows):

@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.forms import to_standard_form as jax_standard_form
@@ -25,16 +24,9 @@ from clp_tpu_torch.constants import INF, ProblemStatus, SolveMethod
 from clp_tpu_torch.simplex import engine as te
 from clp_tpu_torch.simplex import qp as tqp
 from tests.test_qp import _random_qp
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _fields(x) -> dict:

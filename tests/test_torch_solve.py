@@ -5,23 +5,16 @@ CPU against the JAX package on the CPU."""
 import numpy as np
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.utils import generators as jgen
 
 import clp_tpu_torch
 from clp_tpu_torch.utils import generators as tgen
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
+set_worker_threads()
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
 
 FAMILIES = {
     "random": ("random_lp", (12, 20), {"seed": 3}),

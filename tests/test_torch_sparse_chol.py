@@ -9,7 +9,6 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse as sp
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.ops import sparse_chol as jsc
@@ -19,16 +18,9 @@ import clp_tpu_torch
 from clp_tpu_torch.ops import sparse_chol as tsc
 from clp_tpu_torch.ops import sparse_chol_device as tscd
 from tests.test_sparse_chol import window_lp
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 def _window_G(m=512, ncols=1024, win=30, k=8, seed=0):

@@ -5,7 +5,6 @@ device mesh raises under its ROADMAP item."""
 
 import pytest
 import torch
-from threadpoolctl import threadpool_limits
 
 import clp_tpu
 from clp_tpu.sprint import sprint_solve as jax_sprint_solve
@@ -15,16 +14,9 @@ import clp_tpu_torch
 from clp_tpu_torch import sprint
 from clp_tpu_torch.simplex import driver
 from tests.test_torch_auto import _port_model
+from tests.worker_threads import set_worker_threads
 
-torch.set_num_threads(2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_blas_thread():
-    """numpy's OpenBLAS runs a spinning thread per core: beside five other
-    workers it starves the JAX package's host-timing tests."""
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+set_worker_threads()
 
 
 @pytest.mark.parametrize("make", [
