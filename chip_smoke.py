@@ -15,7 +15,8 @@ and checks each answer against the port's KKT check and HiGHS
 (scipy.optimize.milp). Then the barrier: it asserts on each LP's IPM form
 the Newton branch the port's own planners pick (`_rcm_band_plan`,
 `make_device_normal_solver`, `_auto_method`), times one factorization of
-that branch and counts its launches, and solves three LPs against HiGHS
+that branch (its launches are counted under torch.profiler after the last
+phase, since a traced process launches more slowly), and solves three LPs against HiGHS
 — the staircase with `method=BARRIER` (banded normal equations, nb = 256,
 then the crossover's dual simplex through K1), `random_lp(1024, 1792,
 density=0.05)` with `method=BARRIER` (dense mixed32 normal equations, then
@@ -41,11 +42,23 @@ sweep and a batch of 16 LPs, the batched IPM (dense and banded), the
 batched QP simplex on a risk sweep, racing by seeds and by configurations,
 DECOMPOSE through AUTOMATIC and Dantzig-Wolfe, and the IIS, each route
 asserted and held to HiGHS or to its single solve; `chip_smoke.py --batch`
-runs it alone with PE, the batch of 16 and racing on the bench LP (the
-no-argument run cuts those to a 512-row LP for its time, `BP_CUTS`).
+runs it alone with PE, the batch of 16, racing and the IIS on the bench LP
+(the no-argument run cuts those to a 512-row LP for its time, which
+keeps each route, `BP_CUTS`). Then `api_phase` (`--api` alone), the surfaces a Clp user
+touches, on the staircase: written as MPS and read back through the native
+C++ parser, solved by the port's `clp` command line (K1 on every pivot)
+with basis and solution files out and again warm from the basis file,
+LP-format and NL round trips, ranging on the card with each gated range
+checked by a warm re-solve, the parametric walker against HiGHS, OSI's
+hot starts and a tableau column, strong branching (16 lanes), `fathom` on
+a 0-1 knapsack against HiGHS, the C API's C client and `python -m
+clp_tpu_torch -unitTest` in subprocesses on the card. It prints the wall of
+every phase before the kernels line.
 Every phase that fails exits non-zero. The profiles run apart, each in a fresh process
 (`chip_smoke.py --profile-pivots dense|block|batch`): 200 pivots of the
 engine on the dense route and on the block route, and one wide batch.
+`chip_smoke.py --profiler-cost` times the staircase's solve before and
+after one torch.profiler trace in one process.
 
 Prints a `{"kernels": [...]}` line, the card's name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. Imports nothing of the JAX
@@ -705,13 +718,24 @@ def barrier_branch(dev, label, model, branch) -> dict:
             raise AssertionError(f"{label}: two factorizations differ in their bits")
         info["same_bits"] = True
     info["factor_ms"] = host_ms(factor)
-    info["factor_launches"] = launches_of(factor) if dev.type == "cuda" else None
+    # its launches are counted after the last phase (`factor_launches`)
+    info["factor"] = factor
     print(f"barrier branch [{label}]: IPM form {m} x {nt} ({info['nnz']} nonzeros), "
-          f"{branch} as planned; one factorization {info['factor_ms']:.2f} ms, "
-          f"{info['factor_launches']} launches"
+          f"{branch} as planned; one factorization {info['factor_ms']:.2f} ms"
           + (f" ({info['buckets']} buckets in {info['levels']} levels, "
              "2 factorizations bit-identical)" if "buckets" in info else ""), flush=True)
     return info
+
+
+def factor_launches(runs) -> None:
+    """Kernel launches of one factorization of each barrier branch, counted
+    under torch.profiler after every other phase: once the profiler has
+    traced the card, each later launch of the process costs more host time
+    (PERF.md §6, PR 9), which slowed every phase after the barrier's."""
+    for info in runs:
+        n = launches_of(info.pop("factor"))
+        print(f"barrier branch [{info['label']}]: one factorization {n} launches "
+              f"(torch.profiler)", flush=True)
 
 
 def barrier_path(dev, label, make, method, branch, crossover, kkt_tol, highs_ipm,
@@ -1516,6 +1540,7 @@ BP = {
     "pe_primal": (1024, 1792, 0.05),
     "batch_lp": (1024, 1792, 0.05),
     "race": (1024, 1792, 0.05),
+    "iis": (1024, 1792, 0.05),  # the IIS's LP, three conflicting rows appended
     # processes for the HiGHS references of the bench LPs, which solve
     # while the card goes on with the phase
     "highs_workers": 4,
@@ -1532,12 +1557,12 @@ BP = {
 }
 # the no-argument run's cuts: at the sizes above its batch phase took
 # 669.9 s and the whole script 1202.3 s (PERF.md §4), past the 1200 s it
-# is allowed; PE's dual (86.5 s on the staircase), PE's primal (16,066
-# pivots, 154.2 s), the B = 16 batch (82.1 s) and racing (41.1 + 133.4 s)
-# run on random_lp(512, 896, density=0.05) there, which keeps the card's
-# f32 inverse and K1 on PE's dual
+# is allowed; PE's dual and primal, the B = 16 batch, racing and the IIS
+# run on random_lp(512, 896, density=0.05) there. Each keeps its route on
+# the card: 512 rows keep the f32 inverse (m >= 512) and m * (n + m) keeps
+# K1 (>= 512 * 1024) wherever the full size has them
 MID = (512, 896, 0.05)
-BP_CUTS = {"pe_dual": MID, "pe_primal": MID, "batch_lp": MID, "race": MID}
+BP_CUTS = {"pe_dual": MID, "pe_primal": MID, "batch_lp": MID, "race": MID, "iis": MID}
 
 
 def perturbed(base, B: int, rng):
@@ -1688,10 +1713,11 @@ class HighsRefs:
     while the card goes on with the phase; `check` holds every objective
     to its reference within 1e-6 * (1 + |obj|). `close` ends the pool."""
 
-    def __init__(self):
+    def __init__(self, phase: str = "batch phase"):
         import concurrent.futures as cf
         import multiprocessing
 
+        self.phase = phase
         self.pool = cf.ProcessPoolExecutor(BP["highs_workers"],
                                            mp_context=multiprocessing.get_context("spawn"))
         self.futures: dict = {}
@@ -1707,7 +1733,7 @@ class HighsRefs:
         t0 = time.perf_counter()
         for label, key, obj in self.checks:
             agree(label, obj, self.futures[key].result())
-        print(f"batch phase [HiGHS references of the bench-LP paths]: {len(self.checks)} "
+        print(f"{self.phase} [HiGHS references]: {len(self.checks)} "
               f"objectives agree within 1e-6 * (1 + |obj|) ({len(self.futures)} HiGHS IPM "
               f"solves in {BP['highs_workers']} background processes; "
               f"{time.perf_counter() - t0:.1f} s waited at the end)", flush=True)
@@ -1898,6 +1924,10 @@ def racing_paths(dev, refs) -> list:
         if sol.status != ProblemStatus.OPTIMAL:
             raise AssertionError(f"{label}: status {sol.status!r}")
         refs.add(label, model, sol.objective_value)
+        # the dual configuration prices through K1 wherever its gate holds
+        if (label.startswith("racing_solve") and dev.type == "cuda"
+                and wm * (wn + wm) >= 512 * 1024 and launches["K1"] <= 0):
+            raise AssertionError(f"{label}: K1 never launched: {launches}")
         print(f"batch phase [{label}: {wm} x {wn}]: OPTIMAL obj={sol.objective_value!r} "
               f"(HiGHS checked below), winner {getattr(sol, 'winning_config', None)}, "
               f"iterations={sol.iterations}, wall={wall:.3f} s, peak {_mib(peak)}, "
@@ -1998,7 +2028,7 @@ def decompose_paths(dev) -> list:
 
 
 def iis_path(dev) -> dict:
-    """find_iis(batch=True) on the wide LP with tests/test_analysis.py:107's
+    """find_iis(batch=True) on `BP["iis"]` with tests/test_analysis.py:107's
     three conflicting rows over two of its columns appended."""
     import scipy.sparse as sp
 
@@ -2007,7 +2037,7 @@ def iis_path(dev) -> dict:
     from clp_tpu_torch.constants import ProblemStatus, SolveMethod
     from clp_tpu_torch.utils.generators import random_lp
 
-    wm, wn, wd = BP["wide"]
+    wm, wn, wd = BP["iis"]
     model = random_lp(wm, wn, density=wd)
     rows = np.zeros((3, wn))
     rows[0, :2] = 1.0  # x0 + x1 >= 4
@@ -2070,6 +2100,418 @@ def batch_phase(dev, stair_ref: float) -> list:
         refs.close()
     print(f"batch phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return runs
+
+
+# ---------------------------------------------------------------------------
+# api_phase: the clp command line, model files, analysis, B&B hooks, C API
+# ---------------------------------------------------------------------------
+
+API_DIR = pathlib.Path(__file__).resolve().parent / "build" / "api_phase"
+# sizes of the phase's extra models, and a CPU rehearsal patches smaller ones in
+API = {
+    "gates": 8,  # basic and nonbasic structurals whose cost ranges are gated
+    "theta_end": 0.01,  # of the seeded cost direction: ~100 breakpoints here
+    "breakpoints": 4,  # breakpoints held to HiGHS
+    "hot_starts": 4,  # OSI bound changes held to HiGHS
+    "branch_cols": 8,  # strong branching: 16 lanes
+    # fathom's MIP: a seeded 0-1 multidimensional knapsack, 5 weight rows
+    # x 40 items (the shape of the OR-Library mknap problems)
+    "knapsack": (5, 40, 0),
+}
+
+
+class ApiSpy(RouteSpy):
+    """The native MPS parser and the parametric walker, as `read_mps` and
+    `parametrics` look them up at call time."""
+
+    TARGETS = [("io.native", "read_mps_native"), ("analysis", "parametrics_exact")]
+
+
+def lp_split_rows(model):
+    """The model as the LP format writes it: a row with two different finite
+    bounds becomes its upper row and then its lower row (io/lp_format.py)."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import INF
+
+    rl, ru = model.row_lower, model.row_upper
+    take, lo, up = [], [], []
+    for i in range(model.num_rows):
+        if rl[i] == ru[i]:
+            take.append(i), lo.append(rl[i]), up.append(ru[i])
+            continue
+        if ru[i] < INF:
+            take.append(i), lo.append(-INF), up.append(ru[i])
+        if rl[i] > -INF:
+            take.append(i), lo.append(rl[i]), up.append(INF)
+    A = sp.csr_matrix(model.matrix)[take]
+    return A, np.array(lo), np.array(up)
+
+
+def knapsack_mip(k: int, n: int, seed: int):
+    """A seeded 0-1 multidimensional knapsack: max v'x, W x <= W 1 / 2."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch import INF, Model
+
+    rng = np.random.default_rng(seed)
+    W = rng.integers(5, 40, (k, n)).astype(float)
+    v = rng.integers(10, 60, n).astype(float)
+    m = Model()
+    m.load_problem(sp.csc_matrix(W), np.zeros(n), np.ones(n), v, [-INF] * k,
+                   0.5 * W.sum(axis=1))
+    m.set_maximize()
+    for j in range(n):
+        m.set_integer(j)
+    return m
+
+
+def _child_env() -> dict:
+    """The environment of the phase's subprocesses: this interpreter's
+    module path (the C client embeds CPython), the repository root, and no
+    CLPTPU_PLATFORM, so that they solve on the card."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k != "CLPTPU_PLATFORM"}
+    root = str(pathlib.Path(__file__).resolve().parent)
+    env["CLPTPU_ROOT"] = root
+    env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in sys.path if p])
+    return env
+
+
+def api_phase(dev, stair_ref: float) -> dict:
+    """The surfaces a Clp user touches, on the staircase at full width:
+    write it as MPS and read it back through the native parser; solve it
+    with the port's `clp` command line (`-dualsimplex`, K1 on every pivot)
+    with basis and solution files out, and again warm from the basis file;
+    LP-format and NL round trips; ranging on the card, each gated range
+    checked by a warm re-solve; the parametric walker against HiGHS at its
+    breakpoints; OSI's hot starts against HiGHS and a tableau column;
+    strong branching against single hot starts; `fathom` on a knapsack
+    against HiGHS; the C API client and `python -m clp_tpu_torch -unitTest`
+    in subprocesses on the card. Every failure raises. Returns K1's launches
+    and the walls. The entry points refuse to run with CLPTPU_PLATFORM set:
+    the CLI, OSI's default and the subprocesses run on the port's default
+    device, the card."""
+    from scipy.optimize import Bounds, LinearConstraint, milp
+
+    from clp_tpu_torch import SolveOptions, parametrics, ranging
+    from clp_tpu_torch.branching import (mark_hot_start, solve_from_hot_start,
+                                         strong_branch)
+    from clp_tpu_torch.cli import CLI
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod, VariableStatus
+    from clp_tpu_torch.io import native
+    from clp_tpu_torch.io.lp_format import read_lp, write_lp
+    from clp_tpu_torch.io.mps import read_mps, write_mps
+    from clp_tpu_torch.io.nl import read_nl, write_nl
+    from clp_tpu_torch.mip import fathom
+    from clp_tpu_torch.osi import OsiClpTpuSolverInterface
+
+    t_phase = time.perf_counter()
+    walls: dict = {}
+    API_DIR.mkdir(parents=True, exist_ok=True)
+    mps, bas, sol_file = (str(API_DIR / f) for f in ("stair.mps", "stair.bas", "stair.sol"))
+    refs = HighsRefs("api phase")
+    spy = ApiSpy()
+    try:
+        # 1. the staircase as MPS, read back through the native parser
+        model = staircase_model()
+        t0 = time.perf_counter()
+        write_mps(model, mps)
+        walls["write_mps"] = time.perf_counter() - t0
+        if not native.available():
+            raise AssertionError("api phase: the native MPS parser did not build")
+        t0 = time.perf_counter()
+        back = read_mps(mps)
+        walls["read_mps native"] = time.perf_counter() - t0
+        if len(spy.entered("read_mps_native")) != 1 or spy.entered("read_mps_native")[0][-1] is None:
+            raise AssertionError("api phase: read_mps did not take the native route")
+        t0 = time.perf_counter()
+        slow = read_mps(mps, use_native=False)
+        walls["read_mps python"] = time.perf_counter() - t0
+        for f in ("col_lower", "col_upper", "objective", "row_lower", "row_upper"):
+            if not np.array_equal(getattr(back, f), getattr(slow, f)):
+                raise AssertionError(f"api phase: native and Python readers differ in {f}")
+        if (back.matrix != slow.matrix).nnz:
+            raise AssertionError("api phase: native and Python readers differ in A")
+
+        # 2. the cold CLI solve (CLI().run_args(argv) is cli.main(argv))
+        cold, wall, _, launches = timed(dev, lambda: _cli(
+            [mps, "-dualsimplex", "-basisOut", bas, "-solution", sol_file]))
+        walls["cli cold"] = wall
+        s = cold.model.solution
+        # K1 launches only on the card (on the CPU the plain PRICE runs)
+        if s.status != ProblemStatus.OPTIMAL or (launches["K1"] > 0) != (dev.type == "cuda"):
+            raise AssertionError(f"api phase: cold CLI solve {s.status!r}, K1 {launches}")
+        agree("api phase: cold CLI solve", s.objective_value, stair_ref)
+        k1 = launches["K1"]
+        reader = CLI()
+        reader.run_args([mps])
+        if reader.read_solution_file(sol_file) != 0:
+            raise AssertionError("api phase: the solution file does not read back")
+        # the file holds 8 significant digits ("%15.8g")
+        if not np.allclose(reader.model.solution.primal, s.primal, rtol=5e-8, atol=1e-300):
+            raise AssertionError("api phase: the solution file's primal differs")
+        print(f"api phase [cli cold: {mps} -dualsimplex -basisOut -solution]: OPTIMAL "
+              f"obj={s.objective_value!r} (HiGHS {stair_ref!r}); iterations={s.iterations}, "
+              f"wall={wall:.3f} s, K1 launches={launches['K1']}; native MPS read "
+              f"{walls['read_mps native']:.3f} s against the Python reader's "
+              f"{walls['read_mps python']:.3f} s; solution file read back", flush=True)
+
+        # 3. the warm CLI solve from the basis file
+        warm, wall, _, launches = timed(dev, lambda: _cli([mps, "-basisIn", bas,
+                                                             "-dualsimplex"]))
+        walls["cli warm"] = wall
+        k1 += launches["K1"]
+        w = warm.model.solution
+        if w.status != ProblemStatus.OPTIMAL or w.iterations >= 0.01 * s.iterations:
+            raise AssertionError(f"api phase: warm CLI solve {w.status!r} in {w.iterations} "
+                                 f"pivots (cold {s.iterations})")
+        agree("api phase: warm CLI solve", w.objective_value, stair_ref)
+        print(f"api phase [cli warm: -basisIn -dualsimplex]: OPTIMAL obj={w.objective_value!r}; "
+              f"iterations={w.iterations} against the cold solve's {s.iterations}, "
+              f"wall={wall:.3f} s", flush=True)
+
+        # 4. LP-format and NL round trips (numbers are written in
+        # round-trip form: the arrays come back exactly)
+        t0 = time.perf_counter()
+        write_lp(model, str(API_DIR / "stair.lp"))
+        lp = read_lp(str(API_DIR / "stair.lp"))
+        A, lo, up = lp_split_rows(model)
+        if (lp.matrix.tocsr() != A).nnz or not (np.array_equal(lp.row_lower, lo)
+                                                and np.array_equal(lp.row_upper, up)):
+            raise AssertionError("api phase: the LP file's rows differ from the model's")
+        write_nl(model, str(API_DIR / "stair.nl"))
+        nl = read_nl(str(API_DIR / "stair.nl"))
+        if (nl.matrix != model.matrix).nnz:
+            raise AssertionError("api phase: the NL file's matrix differs from the model's")
+        for f in ("col_lower", "col_upper", "objective"):
+            if not (np.array_equal(getattr(lp, f), getattr(model, f))
+                    and np.array_equal(getattr(nl, f), getattr(model, f))):
+                raise AssertionError(f"api phase: {f} differs after the LP / NL round trip")
+        for f in ("row_lower", "row_upper"):
+            if not np.array_equal(getattr(nl, f), getattr(model, f)):
+                raise AssertionError(f"api phase: {f} differs after the NL round trip")
+        walls["lp and nl files"] = time.perf_counter() - t0
+        print(f"api phase [files]: LP format ({lp.num_rows} rows: ranged rows split) and NL "
+              f"read back equal to the model, exactly; {walls['lp and nl files']:.3f} s",
+              flush=True)
+
+        # 5. ranging on the card, gated by warm re-solves
+        solved = cold.model
+        rng_, wall, _, launches = timed(dev, lambda: ranging(solved, device=dev.type))
+        walls["ranging"] = wall
+        k1 += launches["K1"] + _ranging_gates(dev, solved, rng_, walls)
+        print(f"api phase [ranging: {solved.num_rows} x {solved.num_cols}]: wall={wall:.3f} s; "
+              f"{2 * API['gates']} costs moved 99% of the way to a range end keep the basis "
+              f"and move the objective by dc * x_j, {walls['ranging gates']:.3f} s", flush=True)
+
+        # 6. parametrics: the walker, its breakpoints against HiGHS
+        dc = np.random.default_rng(11).standard_normal(model.num_cols)
+        pts, wall, _, launches = timed(dev, lambda: parametrics(
+            solved, API["theta_end"], dc=dc, device=dev.type))
+        walls["parametrics"] = wall
+        k1 += launches["K1"]
+        res = spy.entered("parametrics_exact")[-1][-1]
+        if res.status != ProblemStatus.OPTIMAL or res.pivots < 2:
+            raise AssertionError(f"api phase: parametrics {res.status!r}, {res.pivots} steps")
+        picks = np.unique(np.linspace(1, len(res.thetas) - 1, API["breakpoints"]).astype(int))
+        for k in picks:
+            mk = model.copy()
+            mk.objective = model.objective + res.thetas[k] * dc
+            refs.add(f"parametrics at theta={res.thetas[k]!r}", mk, res.objectives[k])
+        print(f"api phase [parametrics: theta_end={API['theta_end']}]: {res.pivots} walker "
+              f"steps, {len(res.thetas)} breakpoints ({len(pts)} points returned), "
+              f"wall={wall:.3f} s; {picks.size} breakpoints against HiGHS below", flush=True)
+
+        # 7. OSI: initial solve from the basis, hot starts, a tableau column
+        t0 = time.perf_counter()
+        zero_launches()
+        si = OsiClpTpuSolverInterface(model.copy(), device=dev.type)
+        si.options.method = SolveMethod.DUAL_SIMPLEX
+        si.setWarmStart(solved.get_basis_status())
+        si.initialSolve()
+        if not si.isProvenOptimal():
+            raise AssertionError("api phase: OSI initialSolve not optimal")
+        agree("api phase: OSI initialSolve", si.getObjValue(), stair_ref)
+        x = si.getColSolution().copy()
+        basic = np.flatnonzero((si.model.solution.column_status == int(VariableStatus.BASIC))
+                               & (x > 0.5) & (x < 9.5))
+        pick = np.random.default_rng(5).choice(basic, API["hot_starts"], replace=False)
+        si.markHotStart()
+        hot_iters = []
+        for j in pick:
+            lo_, up_ = si.getColLower()[j], si.getColUpper()[j]
+            si.setColBounds(int(j), lo_, 0.5 * x[j])
+            si.solveFromHotStart()
+            if not si.isProvenOptimal():
+                raise AssertionError(f"api phase: solveFromHotStart on column {j}")
+            refs.add(f"OSI hot start x{j} <= {0.5 * x[j]!r}", si.model.copy(), si.getObjValue())
+            hot_iters.append(si.getIterationCount())
+            si.setColBounds(int(j), lo_, up_)
+        si.unmarkHotStart()
+        si.enableFactorization()
+        q = int(si.getBasics()[7])
+        col = si.getBInvACol(q)
+        e = np.zeros(si.getNumRows())
+        e[7] = 1.0
+        if not np.abs(col - e).max() <= 1e-9:
+            raise AssertionError(f"api phase: getBInvACol of basic {q} is off the unit "
+                                 f"vector by {np.abs(col - e).max()!r}")
+        walls["osi"] = time.perf_counter() - t0
+        k1 += kernel_launches()["K1"]
+        print(f"api phase [OSI]: initialSolve from setWarmStart, {len(pick)} hot starts in "
+              f"{hot_iters} pivots (HiGHS below); getBInvACol({q}) a unit vector within "
+              f"{np.abs(col - e).max():.2e}; {walls['osi']:.3f} s", flush=True)
+
+        # 8. strong branching: 16 lanes warm from the parent
+        xs = solved.solution.primal
+        frac = np.flatnonzero(np.abs(xs - np.round(xs)) > 0.1)
+        cols = [int(j) for j in np.random.default_rng(3).choice(frac, API["branch_cols"],
+                                                              replace=False)]
+        res_b, wall, _, launches = timed(dev, lambda: strong_branch(solved, cols,
+                                                                   device=dev.type))
+        walls["strong branching"] = wall
+        k1 += launches["K1"]
+        hot = mark_hot_start(solved)
+        for r in (res_b[0], res_b[-1]):
+            v = xs[r.column]
+            kw = (dict(new_upper=np.floor(v)) if r.direction == "down"
+                  else dict(new_lower=np.ceil(v)))
+            single, _, _, launches = timed(dev, lambda: solve_from_hot_start(
+                solved, hot, r.column, device=dev.type, **kw))
+            k1 += launches["K1"]
+            if single.status != r.status or not abs(single.objective_value - r.objective) \
+                    <= 1e-6 * (1 + abs(r.objective)):
+                raise AssertionError(f"api phase: strong branch {r} vs its hot start "
+                                     f"{single.status!r} {single.objective_value!r}")
+        print(f"api phase [strong branching: {len(res_b)} lanes of {model.num_rows} x "
+              f"{model.num_cols + model.num_rows}]: statuses "
+              f"{sorted({r.status.name for r in res_b})}, lane pivots "
+              f"{[r.iterations for r in res_b]}, wall={wall:.3f} s; first and last lanes "
+              f"equal their single hot starts", flush=True)
+
+        # 9. branch and bound
+        mip = knapsack_mip(*API["knapsack"])
+        W, cap = mip.matrix.toarray(), mip.row_upper
+        ref = milp(-mip.objective, constraints=LinearConstraint(W, -np.inf, cap),
+                   bounds=Bounds(0, 1), integrality=np.ones(mip.num_cols))
+        if not ref.success:
+            raise AssertionError(f"api phase: HiGHS milp failed: {ref.message}")
+        fr, wall, _, launches = timed(dev, lambda: fathom(
+            mip, max_nodes=5000,
+            options=SolveOptions(method=SolveMethod.DUAL_SIMPLEX, device=dev.type)))
+        walls["fathom"] = wall
+        k1 += launches["K1"]
+        if fr.status != ProblemStatus.OPTIMAL:
+            raise AssertionError(f"api phase: fathom {fr.status!r}")
+        agree("api phase: fathom", fr.objective_value, -ref.fun)
+        print(f"api phase [fathom: knapsack {mip.num_rows} x {mip.num_cols}]: OPTIMAL "
+              f"obj={fr.objective_value!r} (HiGHS milp {-ref.fun!r}); nodes={fr.nodes}, "
+              f"iterations={fr.iterations}, wall={wall:.3f} s", flush=True)
+
+        # 10. the C API client, 11. the module entry point, on the card
+        walls["c api"] = _c_api_client(dev)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "clp_tpu_torch", "-unitTest"],
+                           cwd=API_DIR, env=_child_env(), capture_output=True, text=True,
+                           timeout=300)
+        walls["python -m unitTest"] = time.perf_counter() - t0
+        if r.returncode != 0 or "unitTest: OK" not in r.stdout:
+            raise AssertionError(f"api phase: python -m clp_tpu_torch -unitTest exit "
+                                 f"{r.returncode}: {r.stdout[-1000:]} {r.stderr[-2000:]}")
+        print(f"api phase [python -m clp_tpu_torch -unitTest]: unitTest: OK, "
+              f"{walls['python -m unitTest']:.3f} s", flush=True)
+        refs.check()
+    finally:
+        spy.close()
+        refs.close()
+    walls["phase"] = time.perf_counter() - t_phase
+    print(f"api phase: {walls['phase']:.1f} s; walls "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }", flush=True)
+    return {"launches": k1, "walls": walls}
+
+
+def _cli(argv):
+    from clp_tpu_torch.cli import CLI
+
+    c = CLI()
+    rc = c.run_args(argv)
+    if rc != 0:
+        raise AssertionError(f"api phase: clp {' '.join(argv)} exited {rc}")
+    return c
+
+
+def _ranging_gates(dev, solved, rng_, walls) -> int:
+    """API["gates"] basic and as many nonbasic structurals, picked by a seed
+    among those with a finite range end at least 1e-3 away (a 1% margin
+    above the dual tolerance): each cost moved 99% of the way to that end,
+    then a warm dual re-solve must keep the basis (no pivot) and move the
+    objective by dc * x_j. Returns K1's launches."""
+    from clp_tpu_torch import SolveOptions, Solution
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod, VariableStatus
+    from clp_tpu_torch.simplex.driver import simplex_solve
+
+    t0 = time.perf_counter()
+    s = solved.solution
+    c = solved.objective
+    up_ok = np.isfinite(rng_.cost_up) & (rng_.cost_up - c >= 1e-3)
+    dn_ok = np.isfinite(rng_.cost_down) & (c - rng_.cost_down >= 1e-3)
+    ok = up_ok | dn_ok
+    basic = s.column_status == int(VariableStatus.BASIC)
+    gen = np.random.default_rng(7)
+    picks = [int(j) for j in gen.choice(np.flatnonzero(ok & basic), API["gates"], replace=False)]
+    picks += [int(j) for j in gen.choice(np.flatnonzero(ok & ~basic), API["gates"],
+                                         replace=False)]
+    opts = SolveOptions(method=SolveMethod.DUAL_SIMPLEX, device=dev.type)
+    opts.presolve.enabled = False
+    warm = Solution(column_status=s.column_status, row_status=s.row_status)
+    k1 = 0
+    for j in picks:
+        end = rng_.cost_up[j] if up_ok[j] else rng_.cost_down[j]
+        dcj = 0.99 * (end - c[j])
+        mm = solved.copy()
+        mm.objective = c.copy()
+        mm.objective[j] += dcj
+        zero_launches()
+        sj = simplex_solve(mm, opts, dual=True, warm=warm)
+        k1 += kernel_launches()["K1"]
+        if sj.status != ProblemStatus.OPTIMAL or sj.iterations != 0 or not (
+                np.array_equal(sj.column_status, s.column_status)):
+            raise AssertionError(f"api phase: ranging gate x{j}: cost {c[j]!r} + {dcj!r} "
+                                 f"left the basis ({sj.status!r}, {sj.iterations} pivots)")
+        want = s.objective_value + dcj * s.primal[j]
+        if not abs(sj.objective_value - want) <= 1e-6 * (1 + abs(want)):
+            raise AssertionError(f"api phase: ranging gate x{j}: objective "
+                                 f"{sj.objective_value!r}, expected {want!r}")
+    walls["ranging gates"] = time.perf_counter() - t0
+    return k1
+
+
+def _c_api_client(dev) -> float:
+    """Build the port's C API and the C client test_capi.c, run the client
+    with CLPTPU_PLATFORM unset (it solves on the card); returns its wall."""
+    from clp_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    lib = native.build_capi()
+    exe = str(API_DIR / "test_capi")
+    r = subprocess.run(["gcc", str(native.NATIVE_DIR / "test_capi.c"), "-I",
+                        str(native.NATIVE_DIR), str(lib), "-lm", "-o", exe],
+                       capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        raise AssertionError(f"api phase: the C client did not compile: {r.stderr[-2000:]}")
+    built = time.perf_counter() - t0
+    r = subprocess.run([exe], cwd=API_DIR, env=_child_env(), capture_output=True, text=True,
+                       timeout=300)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or "C API test OK" not in r.stdout:
+        raise AssertionError(f"api phase: C API client exit {r.returncode}: "
+                             f"{r.stdout[-1500:]} {r.stderr[-2000:]}")
+    print(f"api phase [C API: test_capi.c against libclptpu_capi, on {dev.type}]: "
+          f"{r.stdout.splitlines()[0]}; C API test OK; built in {built:.3f} s, "
+          f"{wall:.3f} s in all", flush=True)
+    return wall
 
 
 def device_profile(prof, n: int, route: str):
@@ -2231,12 +2673,20 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     from clp_tpu_torch.ops import build
 
+    import os
+
+    if "CLPTPU_PLATFORM" in os.environ:
+        print("chip_smoke: CLPTPU_PLATFORM is set; unset it to run on the card",
+              file=sys.stderr)
+        return 2
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    phase_walls: dict = {}
 
     def mark(phase: str) -> None:
-        print(f"[{time.perf_counter() - t_start:.1f} s since the start] {phase} done",
-              flush=True)
+        now = time.perf_counter() - t_start
+        phase_walls[phase] = now - sum(phase_walls.values())
+        print(f"[{now:.1f} s since the start] {phase} done", flush=True)
 
     smi = nvidia_smi()
     nvcc = subprocess.run([build.nvcc_path(), "--version"], check=True,
@@ -2275,7 +2725,7 @@ def main() -> int:
     print(f"HiGHS objective {highs_obj!r}: all three main-path runs agree within "
           f"1e-6 * (1 + |obj|)", flush=True)
     mark("main paths")
-    barrier_phase(dev)
+    barrier_runs = barrier_phase(dev)
     mark("barrier phase")
     auto_runs = auto_phase(dev)
     mark("auto phase")
@@ -2289,10 +2739,18 @@ def main() -> int:
     mark("batch phase")
     for rec, name in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
         rec["batch_phase_launches"] = sum(r["launches"][name] for r in b_runs)
+    zero_launches()
+    api = api_phase(dev, highs_obj)
+    mark("api phase")
+    k1["api_phase_launches"] = api["launches"]
+    factor_launches(barrier_runs)
+    mark("factorization launches")
+    print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_walls.items())
+          + f"; total {time.perf_counter() - t_start:.1f}", flush=True)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     extra = ("launch_floor_ms", "above_limit", "auto_phase_launches",
-             "nonlinear_phase_launches", "batch_phase_launches")
+             "nonlinear_phase_launches", "batch_phase_launches", "api_phase_launches")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys} | {k: v for k, v in rec.items() if k in extra}
         for rec in (k1, k2, k3)]}))
@@ -2337,6 +2795,50 @@ def batch_main() -> int:
     return 0
 
 
+def api_main() -> int:
+    """`chip_smoke.py --api`: the kernels' build and `api_phase` alone (the
+    contract run is the one with no arguments)."""
+    import os
+
+    if not torch.cuda.is_available() or "CLPTPU_PLATFORM" in os.environ:
+        print("chip_smoke: no card, or CLPTPU_PLATFORM is set", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from clp_tpu_torch.ops import build
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    build.build_all(["price", "pivot", "price_block"])
+    api_phase(torch.device("cuda"), highs_objective(staircase_model()))
+    return 0
+
+
+def profiler_cost_main() -> int:
+    """`chip_smoke.py --profiler-cost`: in one process, the staircase's K1
+    solve twice, then one torch.profiler trace of a single launch, then the
+    same solve again: what a trace leaves on every later launch's host
+    time (why the no-argument run counts its launches last)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from clp_tpu_torch.ops import build
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    build.build_all(["price", "pivot", "price_block"])
+    walls = []
+    for i in range(3):
+        if i == 2:
+            launches_of(lambda: torch.zeros(1, device="cuda"))
+        t0 = time.perf_counter()
+        main_path("K1", False)
+        walls.append(time.perf_counter() - t0)
+    print(f"profiler cost: the staircase's K1 solve {walls[0]:.3f} s, {walls[1]:.3f} s, "
+          f"then after one trace {walls[2]:.3f} s", flush=True)
+    return 0
+
+
 def profile_main(route: str) -> int:
     """`chip_smoke.py --profile-pivots dense|block|batch`: one profile alone,
     in a fresh process (torch.profiler leaves state behind that slows the
@@ -2363,4 +2865,8 @@ if __name__ == "__main__":
         sys.exit(nonlinear_main())
     if args == ["--batch"]:
         sys.exit(batch_main())
+    if args == ["--api"]:
+        sys.exit(api_main())
+    if args == ["--profiler-cost"]:
+        sys.exit(profiler_cost_main())
     sys.exit(main())

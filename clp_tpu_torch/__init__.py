@@ -13,8 +13,11 @@ Entry points:
     Model               — problem container (ClpModel equivalent)
     SolveOptions        — solve configuration; `device` picks the card
                           ("cuda", the default) or the CPU ("cpu")
-    initial_solve       — orchestrated solve (presolve -> simplex -> postsolve)
-    read_mps/write_mps  — MPS IO
+    initial_solve       — orchestrated solve (presolve -> method -> postsolve)
+    solve_batch         — one-call batched solve of many same-shape LPs
+    read_mps/write_mps  — MPS IO (read_lp/write_lp: LP format)
+    ranging/parametrics — post-optimal analysis on the solve's device
+    python -m clp_tpu_torch — the clp command line (cli.py)
 
 LP solvers need float64 for the rim data and the refactorizations; the
 mixed-precision engine runs its pivot loop in f32 on the card.
@@ -33,7 +36,9 @@ from .constants import (  # noqa: F401
 from .model import Model, Solution  # noqa: F401
 from .options import SolveOptions, PresolveOptions  # noqa: F401
 from .io.mps import read_mps, write_mps  # noqa: F401
+from .io.lp_format import read_lp, write_lp  # noqa: F401
 from .validate import check_kkt, check_objective  # noqa: F401
-from .solve import initial_solve  # noqa: F401
+from .solve import initial_solve, solve_batch  # noqa: F401
+from .analysis import ranging, parametrics, dualize, find_iis  # noqa: F401
 
 __version__ = "0.1.0"

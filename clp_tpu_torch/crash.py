@@ -17,6 +17,8 @@ numpy, a copy.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -167,11 +169,15 @@ def triangular_crash(model: Model, options: SolveOptions = None) -> Solution:
     return Solution(column_status=col_status, row_status=row_status)
 
 
-def apply_idiot_crash(model: Model, passes: int = 30, device: str = "cuda") -> int:
+def apply_idiot_crash(model: Model, passes: int = 30, device: Optional[str] = None) -> int:
     """C-API/CLI helper (Clp_idiot role, Clp_C_Interface.h): run the
-    idiot descent on `device` and leave the point on model.solution so a
-    values-pass solve (dual(1)/primal(1)) starts from it."""
-    sol = idiot_crash(model, SolveOptions(idiot_passes=int(passes), device=device))
+    idiot descent on `device` (default: `device.default_device()`) and
+    leave the point on model.solution so a values-pass solve
+    (dual(1)/primal(1)) starts from it."""
+    opts = SolveOptions(idiot_passes=int(passes))
+    if device is not None:
+        opts.device = device
+    sol = idiot_crash(model, opts)
     model.solution.primal = np.asarray(sol.primal, dtype=np.float64)
     model.solution.row_activity = np.asarray(
         model.matrix @ model.solution.primal, dtype=np.float64)

@@ -9,7 +9,21 @@ on a CUDA device it mirrors the TPU branch.
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+
+def default_device() -> str:
+    """The device a solve runs on when the caller names none.
+
+    `CLPTPU_PLATFORM` is the JAX package's platform switch
+    (clp_tpu/__init__.py): "cpu" there puts the port on the CPU too, as
+    the C API's callers and the CLI's scripted runs expect. Anything else,
+    or no setting, gives "cuda", which `resolve_device` refuses without a
+    card.
+    """
+    return "cpu" if os.environ.get("CLPTPU_PLATFORM", "").lower() == "cpu" else "cuda"
 
 
 def resolve_device(name) -> torch.device:

@@ -59,14 +59,23 @@ _SECTIONS = {
 }
 
 
-def read_mps(filename: str, into=None, keep_names: bool = True):
+def read_mps(filename: str, into=None, keep_names: bool = True,
+             use_native: bool = True):
     """Parse an MPS file into a Model (creates one if ``into`` is None).
 
-    The pure-Python reader; the native C++ parser route of the JAX
-    package waits (ROADMAP.md queue 1: analysis/API/CLI).
+    Tries the native C++ parser first (clp_tpu_torch.io.native) and takes
+    this pure-Python reader for gzip input, for sections the C++ parser
+    rejects (QUADOBJ), or when the library cannot be built.
     """
     from ..model import Model
 
+    if use_native:
+        from .native import read_mps_native
+
+        # None: gzip, a section the C++ parser rejects, or no library
+        result = read_mps_native(filename, into=into, keep_names=keep_names)
+        if result is not None:
+            return result
     model = into if into is not None else Model()
 
     row_names: list[str] = []

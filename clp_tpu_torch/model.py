@@ -286,8 +286,13 @@ class Model:
         return 0
 
     def read_lp(self, filename: str) -> int:
-        raise NotImplementedError(
-            "LP-format IO is not ported yet (ROADMAP.md queue 1: analysis/API/CLI)")
+        from .io.lp_format import read_lp
+
+        try:
+            read_lp(filename, into=self)
+            return 0
+        except FileNotFoundError:
+            return -1
 
     # --- solve front door (dispatches to clp_tpu_torch.solve) ---
     def initial_solve(self, options=None):

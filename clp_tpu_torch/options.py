@@ -11,6 +11,7 @@ import dataclasses
 from typing import Optional
 
 from .constants import SolveMethod, ScalingMode
+from .device import default_device
 
 
 @dataclasses.dataclass
@@ -132,5 +133,6 @@ class SolveOptions:
     cleanup: bool = True
     log_level: int = 1
     # torch device the solve runs on. "cuda" with no card raises; the
-    # port never falls back to the CPU on its own. Tests pass "cpu".
-    device: str = "cuda"
+    # port never falls back to the CPU on its own. Tests pass "cpu". The
+    # default is device.default_device(): "cpu" under CLPTPU_PLATFORM=cpu.
+    device: str = dataclasses.field(default_factory=default_device)

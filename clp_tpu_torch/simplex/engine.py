@@ -57,6 +57,10 @@ FREE = 3
 _INF = float("inf")
 
 
+ABLATE_MEMBERS = frozenset(("price", "bfrt", "flip", "forceflow", "ftran", "update",
+                            "book", "rowchoice"))
+
+
 @dataclasses.dataclass(frozen=True)
 class SimplexOptions:
     primal_tolerance: float = 1e-7
@@ -129,8 +133,16 @@ class SimplexOptions:
     # BFRT breakpoint-selection budget: only the K smallest dual ratios
     # can be walked in one long step; truncation is a valid shorter step.
     bfrt_topk: int = 256
-    # timing-only component gates of the JAX package's pivot microbench;
-    # not ported yet (ROADMAP.md queue 1: analysis/API/CLI). Must be empty.
+    # "approx" is the JAX package's jax.lax.approx_max_k, which is exact
+    # off the TPU; the port takes the exact `_smallest_k` for either value.
+    bfrt_select: str = "topk"  # "topk" | "approx"
+    # TIMING-ONLY component gates of the pivot body (the JAX package's
+    # tools/microbench_pivot.py): pieces replaced by cheap aliases so the
+    # wall cost of each can be measured. NEVER set in real solves (results
+    # are numerically meaningless). Members: ABLATE_MEMBERS; any other
+    # raises. "forceflow" (always pay the flip-flow matvec) is accepted for
+    # the JAX package's signature and already holds: the port always
+    # computes the flow.
     ablate: tuple = ()
     # pivots per inner-loop step: the inner loop checks the device status
     # once per block of this many pivots (one host sync per block). The
@@ -141,6 +153,12 @@ class SimplexOptions:
     # not a multiple of it, a chunk over-runs its frequency by up to
     # unroll-1 pivots, as in the JAX package (ROADMAP.md queue 3).
     inner_unroll: int = 1
+
+    def __post_init__(self):
+        unknown = set(self.ablate) - ABLATE_MEMBERS
+        if unknown:
+            raise ValueError(f"unknown ablate members {sorted(unknown)}; "
+                             f"known: {sorted(ABLATE_MEMBERS)}")
 
 
 @dataclasses.dataclass
@@ -157,13 +175,6 @@ class SimplexState:
     status: torch.Tensor  # int32, 0-dim, CONTINUE while running
     refactor_now: torch.Tensor  # bool, 0-dim — accuracy trigger
     refactors: torch.Tensor  # int32, 0-dim — factorization count
-
-
-def _check_supported(opts: SimplexOptions) -> None:
-    if opts.ablate:
-        raise NotImplementedError(
-            "the timing-only ablate gates are not ported (ROADMAP.md queue 1: "
-            "analysis/API/CLI)")
 
 
 def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -535,7 +546,6 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     O(m^2) work against it (PRICE source row, FTRAN triple, rank-1 update)
     stays f32; scalars feeding the f64 solution updates are upcast.
     """
-    _check_supported(opts)
     G = lp.G
     m, nt = G.shape
     dt = G.dtype
@@ -583,7 +593,10 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         score_c = torch.where(compat, score, -_INF)
         bests = torch.stack([score, score_c]).amax(dim=1)
         score = torch.where(bests[1] >= opts.pe_psi * bests[0], score_c, score)
-    r = torch.argmax(score)
+    if "rowchoice" in opts.ablate:  # timing-only: skip the DSE argmax
+        r = torch.remainder(state.iterations.to(torch.int64), m)
+    else:
+        r = torch.argmax(score)
     # ONE gather for every row-r scalar this pivot needs; r stays on the
     # device (x[r] with a tensor index would sync the host every pivot)
     row_stack = torch.stack([above, below, infeas, state.weights,
@@ -606,7 +619,13 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     sgn = torch.where(at_lo, one, -one)
     rel = opts.harris_tolerance_frac * dtol
 
-    if opts.use_pallas_price and blk is not None:
+    if "price" in opts.ablate:  # timing-only: alias instead of the m*nt pass
+        alpha = state.dj.to(dt)
+        a = sigma * alpha
+        elig = ((at_lo & (a > pt)) | (at_up & (a < -pt))) & ~fixed
+        safe_a0 = torch.where(elig, a, 1.0)
+        theta_relaxed = torch.where(elig, (state.dj + sgn * rel) / safe_a0, _INF)
+    elif opts.use_pallas_price and blk is not None:
         # fused BLOCK PRICE + Harris pass-1 (K3): reads the window-compacted
         # (nb, H, CB) tiles instead of the full (m, nt) G; the kernel takes
         # dj, the mask and sgn unpadded and as they are stored
@@ -659,7 +678,7 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     # any_elig without another nt-reduction
     any_elig = torch.isfinite(mins2[1])
 
-    if opts.dual_ratio != "bfrt":
+    if opts.dual_ratio != "bfrt" or "bfrt" in opts.ablate:
         q = torch.argmax(pivot_mag)
     else:
         # long-step BFRT: sort breakpoints by dual ratio and walk past the
@@ -721,7 +740,10 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     theta_q, dj_q, vlo_q, vup_q, vstat_q_f, alpha_rq = (
         col_stack.index_select(1, q.reshape(1))[:, 0].unbind(0))
     both_fin = pre["both_fin"]
-    flip = elig & both_fin & (theta_true < theta_q - 1e-12) & (idx != q)
+    if "flip" in opts.ablate:  # timing-only: no flips
+        flip = torch.zeros_like(elig)
+    else:
+        flip = elig & both_fin & (theta_true < theta_q - 1e-12) & (idx != q)
     width = pre["width"]
     flip_delta = torch.where(flip, torch.where(at_lo, width, -width), 0.0)
 
@@ -733,7 +755,11 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     # the covered windows of the block form). ---
     bd = state.binv.dtype
     binv_fused = None  # set when the fused pivot kernel ran
-    if pm1 is not None:
+    if "ftran" in opts.ablate:  # timing-only: skip the binv contractions
+        abar = rho.to(dt)
+        tau = abar
+        flow = torch.zeros_like(abar)
+    elif pm1 is not None:
         abar = _pm1_ftran_col(state.binv, q, pm1).to(dt)
         tau = _mv(state.binv, rho).to(dt)
         flow = _mv(state.binv, _pm1_matvec(flip_delta, pm1, m).to(bd)).to(dt)
@@ -822,22 +848,31 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     # add into an FMA, so the JAX package's recurrences (dj, DSE weights,
     # x_B, binv) round that way; so must the port's, or the DSE weights drift
     # apart through their cancellations within a few hundred pivots
-    dj_new = torch.addcmul(state.dj, alpha, theta_d, value=-1.0)
-    dj_new = torch.where(idx == q, 0.0, dj_new)
-    dj_new = torch.where(idx == p_leave, -theta_d, dj_new)
+    book = "book" not in opts.ablate  # timing-only: skip point updates
+    if book:
+        dj_new = torch.addcmul(state.dj, alpha, theta_d, value=-1.0)
+        dj_new = torch.where(idx == q, 0.0, dj_new)
+        dj_new = torch.where(idx == p_leave, -theta_d, dj_new)
 
-    # --- DSE weight update (Forrest-Goldfarb) ---
-    wr = torch.clamp_min(w_r, 1e-50)
-    ratio = abar / abar_r
-    w_new = torch.addcmul(
-        torch.addcmul(state.weights, 2.0 * ratio, tau.to(state.weights.dtype), value=-1.0),
-        ratio * ratio, wr)
-    w_new = torch.clamp_min(w_new, 1e-8)
-    w_new = torch.where(im == r, torch.clamp_min(wr / (abar_r * abar_r), 1e-8), w_new)
+        # --- DSE weight update (Forrest-Goldfarb) ---
+        wr = torch.clamp_min(w_r, 1e-50)
+        ratio = abar / abar_r
+        w_new = torch.addcmul(
+            torch.addcmul(state.weights, 2.0 * ratio, tau.to(state.weights.dtype),
+                          value=-1.0),
+            ratio * ratio, wr)
+        w_new = torch.clamp_min(w_new, 1e-8)
+        w_new = torch.where(im == r, torch.clamp_min(wr / (abar_r * abar_r), 1e-8),
+                            w_new)
+    else:
+        dj_new = state.dj
+        w_new = state.weights
 
     # --- basis inverse product-form update (binv's own dtype); K2 already
     # wrote it (gated) in the same pass as the FTRAN
-    if binv_fused is None:
+    if "update" in opts.ablate:  # timing-only: skip the rank-1 update
+        binv_new = state.binv
+    elif binv_fused is None:
         # pivot-gated factor (s_piv above): a gated no-op subtracts an
         # exact zero outer product — binv - 0*row == binv
         factor = abar * s_piv
@@ -849,15 +884,18 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         binv_new = binv_fused
 
     # --- basic solution update ---
-    xb_new = torch.where(
-        im == r, xq_new, torch.addcmul(state.xb, abar, delta_q, value=-1.0) - flow)
-    basis_new = torch.where(im == r, q, state.basis)
-    # apply bound flips first, then the pivot's status changes
-    vstat_flipped = torch.where(
-        flip, torch.where(at_lo, AT_UPPER, AT_LOWER), state.vstat)
-    vstat_new = torch.where(
-        idx == p_leave, torch.where(sigma > 0, AT_UPPER, AT_LOWER), vstat_flipped)
-    vstat_new = torch.where(idx == q, BASIC, vstat_new).to(state.vstat.dtype)
+    if book:
+        xb_new = torch.where(
+            im == r, xq_new, torch.addcmul(state.xb, abar, delta_q, value=-1.0) - flow)
+        basis_new = torch.where(im == r, q, state.basis)
+        # apply bound flips first, then the pivot's status changes
+        vstat_flipped = torch.where(
+            flip, torch.where(at_lo, AT_UPPER, AT_LOWER), state.vstat)
+        vstat_new = torch.where(
+            idx == p_leave, torch.where(sigma > 0, AT_UPPER, AT_LOWER), vstat_flipped)
+        vstat_new = torch.where(idx == q, BASIC, vstat_new).to(state.vstat.dtype)
+    else:
+        xb_new, basis_new, vstat_new = state.xb, state.basis, state.vstat
 
     # --- dispatch on special cases (do_pivot decided above, pre-update) ---
     status = torch.where(
@@ -902,7 +940,6 @@ def primal_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     stays f32; scalars feeding the f64 solution updates are upcast (same
     contract as dual_iteration).
     """
-    _check_supported(opts)
     G = lp.G
     m, nt = G.shape
     dt = G.dtype
@@ -1257,7 +1294,6 @@ def _dual_iteration_fn(lp: StandardLP, opts: SimplexOptions):
     once per solve and never per pivot, the block forms of a block-banded
     G, the sparse ELL forms, or the +-1 index arrays for multiply-free
     pricing)."""
-    _check_supported(opts)
     pre = pivot_invariants(lp, opts)
     if opts.price_mode == "pm1" and not opts.use_pallas_price:
         return partial(dual_iteration, pm1=pm1_indices(lp.G), pre=pre)
@@ -1281,7 +1317,6 @@ def _dual_iteration_fn(lp: StandardLP, opts: SimplexOptions):
 def _primal_iteration_fn(lp: StandardLP, opts: SimplexOptions):
     """Primal iteration closure. The block form is the dual engine's: the
     primal prices densely on the (permuted) LP, as in the JAX package."""
-    _check_supported(opts)
     if opts.price_mode == "pm1":
         return partial(primal_iteration, pm1=pm1_indices(lp.G))
     if opts.inverse_dtype == "float32":

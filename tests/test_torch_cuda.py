@@ -688,3 +688,72 @@ def test_pe_signs_on_card_match_cpu(cuda_device):
                 d = torch.tensor(it, dtype=torch.int32)
                 assert torch.equal(rademacher(seed, d.to(cuda_device), n).cpu(),
                                    rademacher(seed, d, n))
+
+
+def test_ranging_on_card_matches_cpu(cuda_device):
+    """Ranging's tensor ops on the card against the same ops on the CPU, on
+    one solved basis: the LU's last bits apart, within 1e-9."""
+    from clp_tpu_torch import SolveOptions, ranging
+    from clp_tpu_torch.constants import SolveMethod
+    from clp_tpu_torch.utils.generators import staircase_lp
+
+    model = staircase_lp(4, 32, 72, seed=2)
+    opts = SolveOptions(method=SolveMethod.DUAL_SIMPLEX, device="cpu")
+    model.initial_solve(opts)
+    on_cpu = ranging(model, device="cpu")
+    on_card = ranging(model, device="cuda")
+    for f in ("cost_down", "cost_up", "rhs_down", "rhs_up"):
+        a, b = getattr(on_card, f), getattr(on_cpu, f)
+        np.testing.assert_array_equal(np.isinf(a), np.isinf(b), err_msg=f)
+        fin = np.isfinite(b)
+        assert np.all(np.abs(a[fin] - b[fin]) <= 1e-9 * (1 + np.abs(b[fin]))), f
+
+
+def test_cli_solve_on_card_launches_k1(cuda_device, tmp_path, monkeypatch):
+    """The in-process `clp` solve of a 512-row LP on the card (the default
+    device) runs the dual simplex through K1."""
+    from clp_tpu_torch.cli import CLI
+    from clp_tpu_torch.constants import ProblemStatus
+    from clp_tpu_torch.utils.generators import random_lp
+
+    monkeypatch.delenv("CLPTPU_PLATFORM", raising=False)
+    model = random_lp(512, 1024, seed=3, density=0.05)
+    path = str(tmp_path / "m.mps")
+    model.write_mps(path)
+    n1 = price_and_ratios.launches
+    cli = CLI()
+    assert cli.options.device == "cuda"
+    assert cli.run_args([path, "-dualsimplex"]) == 0
+    assert cli.model.solution.status == ProblemStatus.OPTIMAL
+    assert price_and_ratios.launches > n1
+    cpu = CLI()
+    cpu.options.device = "cpu"
+    assert cpu.run_args([path, "-dualsimplex"]) == 0
+    a, b = cli.model.solution.objective_value, cpu.model.solution.objective_value
+    assert abs(a - b) <= 1e-9 * (1 + abs(b))
+
+
+def test_c_api_client_on_card(cuda_device, tmp_path):
+    """The C client test_capi.c against the port's C API, with
+    CLPTPU_PLATFORM unset: its solves run on the card."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from clp_tpu_torch.io import native
+
+    lib = native.build_capi()
+    exe = str(tmp_path / "test_capi")
+    r = subprocess.run(["gcc", str(native.NATIVE_DIR / "test_capi.c"), "-I",
+                        str(native.NATIVE_DIR), str(lib), "-lm", "-o", exe],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    env = {k: v for k, v in os.environ.items() if k != "CLPTPU_PLATFORM"}
+    env["CLPTPU_ROOT"] = root
+    env["PYTHONPATH"] = os.pathsep.join([root] + [p for p in sys.path if p])
+    r = subprocess.run([exe], cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, (r.stdout, r.stderr[-2000:])
+    assert "C API test OK" in r.stdout

@@ -142,3 +142,57 @@ def test_gated_blocks_of_pivots(freq):
             "staircase_lp", (), {"nblocks": 4},
             je.SimplexOptions(**base), te.SimplexOptions(**base))
         assert (t1s, t1i) == (ts, ti) and abs(t1o - to) <= 1e-12 * (1 + abs(to))
+
+
+ABLATE_CASES = [("price",), ("bfrt",), ("flip",), ("forceflow",), ("ftran",), ("update",),
+                ("book",), ("rowchoice",), ("price", "ftran", "update", "book")]
+
+
+@pytest.mark.parametrize("ablate", ABLATE_CASES, ids=lambda a: "+".join(a))
+def test_ablate_gates_match_jax(ablate):
+    """The timing-only gates: from a shared mid-solve state, five gated
+    pivot bodies leave the same engine state in both packages."""
+    _pivots_from_shared_state(dict(dual_ratio="bfrt", ablate=ablate))
+
+
+def test_bfrt_select_approx_is_the_exact_selection():
+    """bfrt_select="approx" is jax.lax.approx_max_k, exact off the TPU; the
+    port takes its exact selection for it: the same states as the JAX
+    package's, and the same as "topk"."""
+    t_approx = _pivots_from_shared_state(dict(dual_ratio="bfrt", bfrt_select="approx"))
+    t_topk = _pivots_from_shared_state(dict(dual_ratio="bfrt", bfrt_select="topk"))
+    for f in ("basis", "vstat", "binv", "xb", "dj", "weights"):
+        np.testing.assert_array_equal(t_approx[f], t_topk[f])
+
+
+def _pivots_from_shared_state(kw, pivots=5):
+    import jax
+    from functools import partial
+
+    from clp_tpu.utils import generators as jgen
+    from clp_tpu_torch import convert
+    from test_torch_engine import _fields
+
+    model = jgen.random_lp(12, 20, seed=5)
+    jlp, _ = jax_standard_form(model)
+    base = je.SimplexOptions(dual_ratio=kw["dual_ratio"])
+    st = _jax_start(jlp, base)
+    walk = jax.jit(partial(je.dual_iteration, opts=base))
+    for _ in range(3):  # walk into the solve so binv is no longer trivial
+        st = walk(jlp, st)
+    jopts, topts = je.SimplexOptions(**kw), te.SimplexOptions(**kw)
+    step = jax.jit(partial(je.dual_iteration, opts=jopts))
+    tlp = convert.standard_lp_from_numpy(_fields(jlp), "cpu")
+    tst = convert.simplex_state_from_numpy(_fields(st), "cpu")
+    for _ in range(pivots):
+        st = step(jlp, st)
+        tst = te.dual_iteration(tlp, tst, topts)
+    t = convert.simplex_state_to_numpy(tst)
+    for f in ("basis", "vstat", "iterations", "status", "refactor_now"):
+        np.testing.assert_array_equal(t[f], np.asarray(getattr(st, f)), err_msg=f)
+    for f in ("binv", "xb", "dj", "weights"):
+        a, b = t[f], np.asarray(getattr(st, f))
+        fin = np.isfinite(b)
+        np.testing.assert_array_equal(np.isfinite(a), fin, err_msg=f)
+        assert np.abs(a[fin] - b[fin]).max(initial=0) <= 1e-10 * (1 + np.abs(b[fin]).max(initial=0)), f
+    return t

@@ -35,6 +35,62 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+# a Python module named in a string of the C++ sources (the C API embeds
+# CPython and imports the package by name)
+_CPP_MODULE = re.compile(r'"(clp_tpu\w*(?:\.\w+)*)"')
+
+
+def test_native_sources_import_only_the_port():
+    """The C API copy names only clp_tpu_torch and its modules."""
+    sources = sorted((PORT / "native").glob("*.cpp"))
+    assert sources
+    named = set()
+    for path in sources:
+        for mod in _CPP_MODULE.findall(path.read_text()):
+            named.add(mod)
+            assert mod == "clp_tpu_torch" or mod.startswith("clp_tpu_torch."), (path, mod)
+    assert {"clp_tpu_torch", "clp_tpu_torch.crash", "clp_tpu_torch.events"} <= named
+
+
+@pytest.mark.parametrize("value, want", [(None, "cuda"), ("cpu", "cpu"), ("CPU", "cpu"),
+                                         ("tpu", "cuda"), ("cuda", "cuda")])
+def test_clptpu_platform_picks_the_default_device(monkeypatch, value, want):
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.device import default_device
+
+    if value is None:
+        monkeypatch.delenv("CLPTPU_PLATFORM", raising=False)
+    else:
+        monkeypatch.setenv("CLPTPU_PLATFORM", value)
+    assert default_device() == want
+    assert SolveOptions().device == want
+    # an explicit device wins over the variable
+    assert SolveOptions(device="cpu").device == "cpu"
+
+
+def test_default_cuda_device_still_raises_without_a_card(monkeypatch):
+    from clp_tpu_torch import SolveOptions, initial_solve, ranging
+    from clp_tpu_torch.cli import CLI
+    from clp_tpu_torch.osi import OsiClpTpuSolverInterface
+    from clp_tpu_torch.utils.generators import random_lp
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the no-card path cannot be exercised")
+    monkeypatch.delenv("CLPTPU_PLATFORM", raising=False)
+    model = random_lp(5, 8, seed=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        initial_solve(model, SolveOptions())
+    with pytest.raises(RuntimeError, match="cuda"):
+        CLI().model.dual()
+    with pytest.raises(RuntimeError, match="cuda"):
+        OsiClpTpuSolverInterface(model).initialSolve()
+    monkeypatch.setenv("CLPTPU_PLATFORM", "cpu")
+    model.dual()
+    monkeypatch.delenv("CLPTPU_PLATFORM")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ranging(model)
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_clp_tpu_import_in_source(path):
     text = path.read_text()
@@ -107,7 +163,12 @@ def test_fp32_precision_guard():
 SLICE_MODULES = ["clp_tpu_torch.simplex.qp", "clp_tpu_torch.dynamic",
                  "clp_tpu_torch.colgen", "clp_tpu_torch.piecewise", "clp_tpu_torch.slp",
                  "clp_tpu_torch.parallel.batch", "clp_tpu_torch.parallel.racing",
-                 "clp_tpu_torch.decompose", "clp_tpu_torch.utils.prng"]
+                 "clp_tpu_torch.decompose", "clp_tpu_torch.utils.prng",
+                 "clp_tpu_torch.branching", "clp_tpu_torch.mip", "clp_tpu_torch.osi",
+                 "clp_tpu_torch.params", "clp_tpu_torch.cli", "clp_tpu_torch.__main__",
+                 "clp_tpu_torch.netlib", "clp_tpu_torch.io.basis",
+                 "clp_tpu_torch.io.lp_format", "clp_tpu_torch.io.nl",
+                 "clp_tpu_torch.io.native"]
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
@@ -160,15 +221,30 @@ def test_device_meshes_raise_multi_device(entry):
 
 
 def test_ablate_gates_raise():
+    """The timing-only gates are ported (they raised until the API/CLI
+    slice): a solve with one runs, and the gate takes effect — with
+    "update" the pivots change the basis but never binv."""
     from clp_tpu_torch.forms import to_standard_form
     from clp_tpu_torch.simplex import engine
     from clp_tpu_torch.utils.generators import random_lp
 
-    lp, _ = to_standard_form(random_lp(6, 9, seed=2), device="cpu")
-    opts = engine.SimplexOptions(ablate=("price",))
-    st = engine.initial_state(lp, opts)
-    with pytest.raises(NotImplementedError, match="ablate"):
-        engine.dual_solve(lp, st, opts)
+    lp, _ = to_standard_form(random_lp(12, 20, seed=5), device="cpu")
+    opts = engine.SimplexOptions(ablate=("update",), max_iterations=3)
+    st = engine.make_dual_feasible(lp, engine.recompute(lp, engine.initial_state(lp, opts),
+                                                        opts.dual_bound), opts)
+    out = engine.dual_iteration(lp, st, opts)
+    assert int(out.iterations) == int(st.iterations) + 1
+    assert not torch.equal(out.basis, st.basis)
+    assert torch.equal(out.binv, st.binv)
+    engine.dual_solve(lp, st, opts)  # runs: no gate is refused
+
+
+def test_ablate_refuses_unknown_members():
+    from clp_tpu_torch.simplex import engine
+
+    with pytest.raises(ValueError, match="prce"):
+        engine.SimplexOptions(ablate=("prce",))
+    assert engine.SimplexOptions(ablate=tuple(engine.ABLATE_MEMBERS)).ablate
 
 
 def test_cuda_wrappers_refuse_other_devices():
