@@ -38,7 +38,7 @@ universe against HiGHS, and one cutting-stock LP by column generation
 and by the dynamic matrix (`chip_smoke.py --nonlinear` runs this phase
 alone). Then `batch_phase`: ELL pricing on the staircase and the Positive Edge
 rules, the batched dual simplex on bench.py's batches, a 10,240-scenario
-sweep and a batch of 16 LPs, the batched IPM (dense and banded), the
+sweep (5,120 in the no-argument run) and a batch of 16 LPs, the batched IPM (dense and banded), the
 batched QP simplex on a risk sweep, racing by seeds and by configurations,
 DECOMPOSE through AUTOMATIC and Dantzig-Wolfe, and the IIS, each route
 asserted and held to HiGHS or to its single solve; `chip_smoke.py --batch`
@@ -52,13 +52,21 @@ LP-format and NL round trips, ranging on the card with each gated range
 checked by a warm re-solve, the parametric walker against HiGHS, OSI's
 hot starts and a tableau column, strong branching (16 lanes), `fathom` on
 a 0-1 knapsack against HiGHS, the C API's C client and `python -m
-clp_tpu_torch -unitTest` in subprocesses on the card. It prints the wall of
-every phase before the kernels line.
+clp_tpu_torch -unitTest` in subprocesses on the card. Then `mesh_phase`
+(`--mesh` alone), shape buckets and the device mesh: the staircase
+bucketed to 2560 x 5120 through the dual simplex (K1 on every pivot) and
+the barrier with crossover, the column-sharded dual engine on the bench
+LP, SPRINT over a "block" mesh, bench.py's batches, the B = 64 IPM batch
+and the risk sweep over a 4-entry "scenario" mesh (lane by lane against
+the unsharded batch), racing over 3 devices and the port's multi-device
+dry run; every mesh entry is the one card, so no copy between devices is
+timed. It prints the wall of every phase before the kernels line.
 Every phase that fails exits non-zero. The profiles run apart, each in a fresh process
 (`chip_smoke.py --profile-pivots dense|block|batch`): 200 pivots of the
 engine on the dense route and on the block route, and one wide batch.
 `chip_smoke.py --profiler-cost` times the staircase's solve before and
-after one torch.profiler trace in one process.
+after one torch.profiler trace in one process; `chip_smoke.py
+--race-configs` times racing's configurations alone and raced.
 
 Prints a `{"kernels": [...]}` line, the card's name and power limit, and as
 its last line `{"ok": true, "device": {...}}`. Imports nothing of the JAX
@@ -542,7 +550,8 @@ def main_path(label: str, use_k2: bool, price_mode: str = "auto") -> dict:
           f"factorizations={stats.get('factorizations')}, "
           f"solve phases={ {k: round(v, 3) for k, v in sol.timings.items() if isinstance(v, float)} }",
           flush=True)
-    return {"label": label, "launches": launches, "objective": sol.objective_value}
+    return {"label": label, "launches": launches, "objective": sol.objective_value,
+            "iterations": sol.iterations}
 
 
 def window_lp(m: int, ncols: int, win: int, seed: int):
@@ -738,7 +747,7 @@ def factor_launches(runs) -> None:
               f"(torch.profiler)", flush=True)
 
 
-def barrier_path(dev, label, make, method, branch, crossover, kkt_tol, highs_ipm,
+def barrier_path(dev, label, make, method, branch, crossover, kkt_tol, highs_ref,
                  kw) -> dict:
     """One barrier solve through the public entry point, with the launch
     counts of exactly this run; checked for status, KKT, the branch taken,
@@ -779,7 +788,7 @@ def barrier_path(dev, label, make, method, branch, crossover, kkt_tol, highs_ipm
     if (launches["K1"] > 0) != (simplex and dev.type == "cuda") or \
             launches["K2"] or launches["K3"]:
         raise AssertionError(f"barrier [{label}]: wrong kernels launched: {launches}")
-    ref = highs_objective(model, ipm=highs_ipm)
+    ref = highs_ref.result()
     if not abs(sol.objective_value - ref) <= 1e-6 * (1 + abs(ref)):
         raise AssertionError(f"barrier [{label}]: objective {sol.objective_value!r} "
                              f"vs HiGHS {ref!r}")
@@ -811,10 +820,16 @@ def barrier_phase(dev) -> list:
                              "expected DUAL_SIMPLEX")
     print(f"AUTOMATIC on the staircase ({dev.type}): {auto.name}", flush=True)
     runs = []
-    for label, make, method, branch, crossover, kkt_tol, highs_ipm, kw in barrier_models():
-        info = barrier_branch(dev, label, make(), branch)
-        runs.append(info | barrier_path(dev, label, make, method, branch, crossover,
-                                        kkt_tol, highs_ipm, kw))
+    specs = barrier_models()
+    refs = HighsRefs("barrier phase", workers=len(specs))
+    try:
+        futures = [refs.reference(spec[1](), spec[6]) for spec in specs]
+        for (label, make, method, branch, crossover, kkt_tol, _, kw), ref in zip(specs, futures):
+            info = barrier_branch(dev, label, make(), branch)
+            runs.append(info | barrier_path(dev, label, make, method, branch, crossover,
+                                            kkt_tol, ref, kw))
+    finally:
+        refs.close()
     return runs
 
 
@@ -1027,7 +1042,7 @@ def route_counts(spy: RouteSpy, sol) -> str:
     return ", ".join(parts)
 
 
-def auto_path(dev, label, make, expect, highs_ipm) -> dict:
+def auto_path(dev, label, make, expect, highs_ref) -> dict:
     """One LP through `initial_solve` with the default AUTOMATIC on the
     card, with the launch counts of exactly this run; checked for the route,
     status, KKT at 1e-6 and the objective against HiGHS."""
@@ -1065,14 +1080,14 @@ def auto_path(dev, label, make, expect, highs_ipm) -> dict:
     if launches["K2"] or launches["K3"]:
         raise AssertionError(f"auto [{label}]: K2 or K3 launched: {launches}")
     t0 = time.perf_counter()
-    ref = highs_objective(model, ipm=highs_ipm)
+    ref = highs_ref.result()
     highs_s = time.perf_counter() - t0
     if not abs(sol.objective_value - ref) <= 1e-6 * (1 + abs(ref)):
         raise AssertionError(f"auto [{label}]: objective {sol.objective_value!r} "
                              f"vs HiGHS {ref!r}")
     print(f"auto path [{label}: {shape[0]} x {shape[1]}, {shape[2]} nonzeros]: {route} "
           f"as expected; OPTIMAL obj={sol.objective_value!r} (HiGHS {ref!r}, "
-          f"{highs_s:.2f} s), KKT ok at 1e-6; {counts}; solve wall={wall:.3f} s, "
+          f"{highs_s:.2f} s waited), KKT ok at 1e-6; {counts}; solve wall={wall:.3f} s, "
           f"K1 launches={launches['K1']}, "
           f"phases={ {k: round(v, 3) for k, v in sol.timings.items() if isinstance(v, float)} }",
           flush=True)
@@ -1083,7 +1098,14 @@ def auto_phase(dev) -> list:
     """Each AUTOMATIC destination but DECOMPOSE, driven through the default
     `initial_solve` on the card; K1 must launch inside the phase's simplex
     sub-solves."""
-    runs = [auto_path(dev, *spec) for spec in auto_models()]
+    specs = auto_models()
+    refs = HighsRefs("auto phase", workers=3)
+    try:
+        futures = [refs.reference(make(), ipm) for _, make, _, ipm in specs]
+        runs = [auto_path(dev, label, make, expect, ref)
+                for (label, make, expect, _), ref in zip(specs, futures)]
+    finally:
+        refs.close()
     if sum(r["launches"]["K1"] for r in runs) <= 0:
         raise AssertionError("auto phase: K1 never launched in its simplex sub-solves")
     return runs
@@ -1558,11 +1580,14 @@ BP = {
 # the no-argument run's cuts: at the sizes above its batch phase took
 # 669.9 s and the whole script 1202.3 s (PERF.md §4), past the 1200 s it
 # is allowed; PE's dual and primal, the B = 16 batch, racing and the IIS
-# run on random_lp(512, 896, density=0.05) there. Each keeps its route on
-# the card: 512 rows keep the f32 inverse (m >= 512) and m * (n + m) keeps
-# K1 (>= 512 * 1024) wherever the full size has them
-MID = (512, 896, 0.05)
-BP_CUTS = {"pe_dual": MID, "pe_primal": MID, "batch_lp": MID, "race": MID, "iis": MID}
+# run on random_lp(512, 640, density=0.05) there (512 x 896 until the mesh
+# phase added ~190 s to a run of ~860 s; the run is to stay under 1000 s),
+# the sweep on 20 batches of 256. Each keeps its route
+# on the card: 512 rows keep the f32 inverse (m >= 512) and m * (n + m)
+# keeps K1 (>= 512 * 1024) wherever the full size has them
+MID = (512, 640, 0.05)
+BP_CUTS = {"pe_dual": MID, "pe_primal": MID, "batch_lp": MID, "race": MID, "iis": MID,
+           "sweep_batches": 20}
 
 
 def perturbed(base, B: int, rng):
@@ -1707,35 +1732,41 @@ def _model_key(model) -> str:
 
 
 class HighsRefs:
-    """The HiGHS checks of the bench-LP paths (HiGHS's IPM takes 10-60 s on
-    each): every distinct LP's reference solves in one of
-    `BP["highs_workers"]` spawned processes from the moment it is added,
-    while the card goes on with the phase; `check` holds every objective
-    to its reference within 1e-6 * (1 + |obj|). `close` ends the pool."""
+    """HiGHS references solved while the card works (HiGHS's IPM takes
+    10-60 s on each bench LP; waiting for each in turn cost the barrier and
+    AUTOMATIC phases ~70 s of the run, PERF.md §4): every distinct LP
+    solves in one of `workers` (default `BP["highs_workers"]`) spawned
+    processes from the moment it is added. `reference` returns the
+    objective's future; `add` queues a check that `check` holds to its
+    reference within 1e-6 * (1 + |obj|). `close` ends the pool."""
 
-    def __init__(self, phase: str = "batch phase"):
+    def __init__(self, phase: str = "batch phase", workers: int | None = None):
         import concurrent.futures as cf
         import multiprocessing
 
         self.phase = phase
-        self.pool = cf.ProcessPoolExecutor(BP["highs_workers"],
+        self.workers = workers or BP["highs_workers"]
+        self.pool = cf.ProcessPoolExecutor(self.workers,
                                            mp_context=multiprocessing.get_context("spawn"))
         self.futures: dict = {}
         self.checks: list = []
 
-    def add(self, label, model, obj) -> None:
-        key = _model_key(model)
+    def reference(self, model, ipm: bool = True):
+        key = (_model_key(model), ipm)
         if key not in self.futures:
-            self.futures[key] = self.pool.submit(highs_objective, model, True)
-        self.checks.append((label, key, obj))
+            self.futures[key] = self.pool.submit(highs_objective, model, ipm)
+        return self.futures[key]
+
+    def add(self, label, model, obj) -> None:
+        self.checks.append((label, self.reference(model), obj))
 
     def check(self) -> None:
         t0 = time.perf_counter()
-        for label, key, obj in self.checks:
-            agree(label, obj, self.futures[key].result())
+        for label, future, obj in self.checks:
+            agree(label, obj, future.result())
         print(f"{self.phase} [HiGHS references]: {len(self.checks)} "
-              f"objectives agree within 1e-6 * (1 + |obj|) ({len(self.futures)} HiGHS IPM "
-              f"solves in {BP['highs_workers']} background processes; "
+              f"objectives agree within 1e-6 * (1 + |obj|) ({len(self.futures)} HiGHS "
+              f"solves in {self.workers} background processes; "
               f"{time.perf_counter() - t0:.1f} s waited at the end)", flush=True)
 
     def close(self) -> None:
@@ -1809,7 +1840,7 @@ def batched_dual_paths(dev, refs) -> list:
         r = batch_dual(dev, f"sweep {k}", perturbed(base, B, rng), (0, B - 1))
         done, lanes, pivots = done + 1, lanes + r["B"], pivots + r["pivots"]
     wall = time.perf_counter() - t0
-    print(f"batch phase [10,240-scenario sweep: {done} of {BP['sweep_batches']} batches of "
+    print(f"batch phase [scenario sweep: {done} of {BP['sweep_batches']} batches of "
           f"{B} x {m} x {n}]: {lanes} scenarios all OPTIMAL, first and last lane of each "
           f"batch agree with HiGHS; wall={wall:.3f} s (HiGHS checks included), "
           f"{lanes / wall:.1f} scenarios/s, {pivots} lane pivots", flush=True)
@@ -2514,6 +2545,303 @@ def _c_api_client(dev) -> float:
     return wall
 
 
+# ---------------------------------------------------------------------------
+# mesh_phase: shape buckets and the device mesh
+# ---------------------------------------------------------------------------
+
+# sizes of the phase's models; a CPU rehearsal patches smaller ones in. The
+# card's mesh puts every entry on the one card ("cuda:0" * MP["mesh"]), so
+# no copy between devices is timed here
+MP = {
+    "bucket": 640,  # the staircase 2048 x 4608 pads to 2560 x 5120
+    "colshard_lp": (1024, 1792, 0.05),  # bench.py's random LP
+    # 2, not 4: over 4 entries of the one card the phase took 193.3 s (its
+    # engine 40.9 s beside 16.2 s on one device), past its 180 s; the
+    # shards are cut before any LP is made smaller (PERF.md §4)
+    "colshard_shards": 2,
+    "sprint_lp": (192, 3072, 0.01, 1),  # auto_phase's wide LP
+    "dual_b32": (32, 64, 96, 2),  # bench.py:208
+    "dual_b256": (256, 32, 48, 4),  # bench.py:237
+    "ipm_b64": (64, 48, 72, 0),  # bench.py:138
+    "qp": (2048, 8),  # batch_phase's risk sweep: assets, gammas
+    # racing's dual configuration takes the f32 inverse and K1 here, as in
+    # batch_phase (MID); at 256 x 448 every configuration ran f64, no kernel
+    "race": MID,
+    "mesh": 4,
+}
+
+
+class MeshSpy(RouteSpy):
+    TARGETS = [("simplex.driver", "simplex_solve"), ("solve", "_pad_ipm_lp"),
+               ("parallel.batch", "ipm_solve_batched"),
+               ("interior.mehrotra", "ipm_batched_prog")]
+
+
+def _devices(dev, n: int) -> list:
+    return [f"{dev.type}:0" if dev.type == "cuda" else "cpu"] * n
+
+
+def bucketed_paths(dev, stair_ref: float, main_pivots: int) -> list:
+    """(a) the staircase's dual simplex and (b) its BARRIER with crossover,
+    each with shape_bucket = MP["bucket"]: the padded shape asserted, K1 on
+    every pivot of the padded dual simplex, the stripped answer held to
+    HiGHS and to the port's KKT check on the model itself."""
+    from clp_tpu_torch import SolveOptions, check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.simplex.driver import _bucket_shape
+
+    runs = []
+    bucket = MP["bucket"]
+    for label, method in (("dual simplex", "DUAL_SIMPLEX"), ("barrier", "BARRIER")):
+        model = staircase_model()
+        opts = SolveOptions(method=SolveMethod[method], device=dev.type, shape_bucket=bucket)
+        spy = MeshSpy()
+        try:
+            sol, wall, peak, launches = timed(dev, lambda: initial_solve(model, opts))
+        finally:
+            spy.close()
+        if sol.status != ProblemStatus.OPTIMAL:
+            raise AssertionError(f"bucketed {label}: status {sol.status!r}")
+        calls = [(c[2][0].num_rows, c[2][0].num_cols, c[2][1].shape_bucket)
+                 for c in spy.entered("simplex_solve")]
+        outer = [c for c in calls if c[2] == bucket]
+        padded = [c[:2] for c in calls if c[2] == 0]
+        want = _bucket_shape(*outer[0][:2], bucket) if outer else None
+        if not outer or want not in padded:
+            raise AssertionError(f"bucketed {label}: simplex calls {calls}, expected a "
+                                 f"padded solve at {want}")
+        if method == "BARRIER":
+            pads = spy.entered("_pad_ipm_lp")
+            stats = sol.timings.get("barrier_stats") or {}
+            if len(pads) != 1 or not str(stats.get("branch", "")).startswith("banded"):
+                raise AssertionError(f"bucketed barrier: {len(pads)} pads, stats {stats}")
+        if dev.type == "cuda" and (launches["K1"] < sol.iterations or launches["K1"] <= 0
+                                   or launches["K2"] or launches["K3"]):
+            raise AssertionError(f"bucketed {label}: K1 not on every pivot: {launches}, "
+                                 f"{sol.iterations} pivots")
+        if sol.primal.shape != (model.num_cols,) or sol.duals.shape != (model.num_rows,):
+            raise AssertionError(f"bucketed {label}: vectors not stripped: "
+                                 f"{sol.primal.shape}, {sol.duals.shape}")
+        rep = check_kkt(model, x=sol.primal, y=sol.duals, tol=1e-6)
+        if not rep.ok:
+            raise AssertionError(f"bucketed {label}: KKT check at 1e-6 failed: {rep}")
+        agree(f"bucketed {label}", sol.objective_value, stair_ref)
+        extra = ""
+        if method == "BARRIER":
+            extra = (f"; {stats['branch']}, IPM {stats['iterations']} iterations "
+                     f"({'converged' if stats['converged'] else 'NOT converged'}) in "
+                     f"{stats['seconds']:.3f} s, crossover pivots {sol.iterations}")
+        else:
+            extra = f"; {sol.iterations} pivots (unbucketed K1 main path: {main_pivots})"
+        print(f"mesh phase [bucketed {label}: staircase {model.num_rows} x {model.num_cols} "
+              f"padded to {want[0]} x {want[1]} at bucket {bucket}]: OPTIMAL "
+              f"obj={sol.objective_value!r} (HiGHS {stair_ref!r}), KKT ok on the model"
+              f"{extra}; wall={wall:.3f} s, peak {_mib(peak)}, launches={launches}",
+              flush=True)
+        runs.append({"label": f"bucketed {label}", "wall": wall, "launches": launches})
+    return runs
+
+
+def colsharded_path(dev, refs, shards: int) -> dict:
+    """(c) bench.py's random LP through dual_solve_colsharded over `shards`
+    mesh entries with the card's engine settings, against the port's
+    single-device engine on the same LP and HiGHS."""
+    from clp_tpu_torch.forms import to_standard_form
+    from clp_tpu_torch.parallel.colshard import dual_solve_colsharded, make_block_mesh
+    from clp_tpu_torch.simplex import engine
+    from clp_tpu_torch.utils.generators import random_lp
+
+    m, n, d = MP["colshard_lp"]
+    model = random_lp(m, n, density=d)
+    lp, _ = to_standard_form(model, device=dev)
+    opts = engine.SimplexOptions(inverse_dtype="float32", dual_ratio="bfrt",
+                                 inner_unroll=8, refactor_frequency=400)
+
+    def objective(lp_, s):
+        xn = engine.nonbasic_values(lp_, s.vstat, opts.dual_bound)
+        return float(lp_.c.index_select(0, s.basis) @ s.xb + lp_.c @ xn)
+
+    def single():
+        s = engine.initial_state(lp, opts)
+        s = engine.make_dual_feasible(lp, engine.recompute(lp, s, opts.dual_bound), opts)
+        return engine.dual_solve(lp, s, opts)
+
+    ref, wall1, _, _ = timed(dev, single)
+    stats = {}
+    (st, slp, nt0), wall, peak, launches = timed(dev, lambda: dual_solve_colsharded(
+        lp, opts, make_block_mesh(_devices(dev, shards)), stats=stats))
+    if int(st.status) != engine.OPTIMAL or int(ref.status) != engine.OPTIMAL:
+        raise AssertionError(f"colsharded: status {int(st.status)}, single {int(ref.status)}")
+    if any(launches.values()):
+        raise AssertionError(f"colsharded: a kernel launched: {launches}")
+    obj, obj1 = objective(slp, st), objective(lp, ref)
+    agree("colsharded vs the single-device engine", obj, obj1)
+    refs.add("colsharded", model, obj)
+    print(f"mesh phase [column-sharded dual engine: random_lp({m}, {n}), simplex form "
+          f"{lp.G.shape[0]} x {lp.G.shape[1]} padded to {slp.nt}, {shards} shards on "
+          f"{_devices(dev, shards)[0]}; f32 inverse, BFRT, U=8, refactor 400]: OPTIMAL "
+          f"obj={obj!r} (single-device {obj1!r}; HiGHS checked below); "
+          f"pivots {int(st.iterations)} (single-device {int(ref.iterations)}); "
+          f"wall={wall:.3f} s (single-device {wall1:.3f} s); elements moved between "
+          f"shards per pivot {stats['elements_per_pivot']:.0f} over "
+          f"{stats['pivots']} engine iterations, {stats['elements']} in all; "
+          f"peak {_mib(peak)}", flush=True)
+    return {"label": "colsharded", "wall": wall, "launches": launches}
+
+
+def block_sprint_path(dev, refs) -> dict:
+    """(d) SPRINT on auto_phase's wide LP with a 4-entry "block" mesh given
+    as options.devices: the sharded repricing asserted, HiGHS below."""
+    from clp_tpu_torch import SolveOptions, check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.parallel.block import BlockShardedColumns, make_block_mesh
+    from clp_tpu_torch.utils.generators import random_lp
+
+    m, n, d, seed = MP["sprint_lp"]
+    model = random_lp(m, n, density=d, seed=seed)
+    opts = SolveOptions(method=SolveMethod.SPRINT, device=dev.type,
+                        devices=make_block_mesh(_devices(dev, MP["mesh"])))
+    calls = []
+    inner = BlockShardedColumns.reprice
+
+    def reprice(self, y, k=256):
+        calls.append(len(self.G))
+        return inner(self, y, k)
+
+    BlockShardedColumns.reprice = reprice
+    try:
+        sol, wall, peak, launches = timed(dev, lambda: initial_solve(model, opts))
+    finally:
+        BlockShardedColumns.reprice = inner
+    if sol.status != ProblemStatus.OPTIMAL or not calls or set(calls) != {MP["mesh"]}:
+        raise AssertionError(f"block SPRINT: status {sol.status!r}, reprices {calls}")
+    rep = check_kkt(model, x=sol.primal, y=sol.duals, tol=1e-6)
+    if not rep.ok:
+        raise AssertionError(f"block SPRINT: KKT check at 1e-6 failed: {rep}")
+    refs.add("block SPRINT", model, sol.objective_value)
+    print(f"mesh phase [block-sharded SPRINT: {m} x {n}, {MP['mesh']} shards]: OPTIMAL "
+          f"obj={sol.objective_value!r} (HiGHS checked below), KKT ok; {len(calls)} sharded "
+          f"repricings, iterations={sol.iterations}, wall={wall:.3f} s, peak {_mib(peak)}, "
+          f"launches={launches}", flush=True)
+    return {"label": "block SPRINT", "wall": wall, "launches": launches}
+
+
+def sharded_batch_paths(dev) -> list:
+    """(e) bench.py's batched dual simplex (B = 32 and 256), the B = 64 IPM
+    batch and the risk sweep, each unsharded and over a 4-entry
+    "scenario" mesh: every lane the same status as its unsharded lane and
+    the objective within 1e-9 relative."""
+    from clp_tpu_torch import SolveOptions
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.parallel.batch import solve_batch_dual_simplex, solve_batch_qp_simplex
+    from clp_tpu_torch.parallel.mesh import make_mesh
+    from clp_tpu_torch.solve import solve_batch
+    from clp_tpu_torch.utils.generators import random_lp
+
+    mesh = make_mesh(_devices(dev, MP["mesh"]))
+    dual_opts = SolveOptions(method=SolveMethod.DUAL_SIMPLEX, device=dev.type)
+    dual_opts.presolve.enabled = False
+    rng = np.random.default_rng(3)
+    specs = []
+    for key in ("dual_b32", "dual_b256"):
+        B, m, n, seed = MP[key]
+        specs.append((f"batched dual {key[5:]}", perturbed(random_lp(m, n, seed=seed), B, rng),
+                      lambda ms, **kw: solve_batch_dual_simplex(ms, dual_opts, **kw)))
+    B, m, n, seed = MP["ipm_b64"]
+    specs.append(("batched IPM b64", perturbed(random_lp(m, n, seed=seed), B,
+                                               np.random.default_rng(1)),
+                  lambda ms, **kw: solve_batch(ms, SolveOptions(device=dev.type), **kw)))
+    nq, gq = MP["qp"]
+    specs.append((f"batched QP simplex {gq} gammas x {nq} assets",
+                  [portfolio_qp(nq, gamma=g) for g in np.linspace(0.5, 8.0, gq)],
+                  lambda ms, **kw: solve_batch_qp_simplex(ms, SolveOptions(device=dev.type),
+                                                          **kw)))
+    runs = []
+    for label, models, fn in specs:
+        plain, wall0, _, l0 = timed(dev, lambda: fn([x.copy() for x in models]))
+        spy = MeshSpy()
+        try:
+            sharded, wall, peak, launches = timed(
+                dev, lambda: fn([x.copy() for x in models], mesh=mesh))
+        finally:
+            spy.close()
+        if spy.entered("simplex_solve"):
+            raise AssertionError(f"{label}: a lane fell back to the single-LP driver")
+        if label.startswith("batched IPM") and (spy.entered("ipm_solve_batched")
+                                                or len(spy.entered("ipm_batched_prog"))
+                                                != MP["mesh"]):
+            raise AssertionError(f"{label}: not one lockstep IPM program per mesh entry")
+        for i, (s, p) in enumerate(zip(sharded, plain)):
+            if s.status != p.status or s.status != ProblemStatus.OPTIMAL or not abs(
+                    s.objective_value - p.objective_value) <= 1e-9 * (1 + abs(p.objective_value)):
+                raise AssertionError(f"{label} lane {i}: sharded {s.status!r} "
+                                     f"{s.objective_value!r} vs unsharded {p.status!r} "
+                                     f"{p.objective_value!r}")
+        if any(launches.values()) or any(l0.values()):
+            raise AssertionError(f"{label}: a kernel launched under the batch")
+        B = len(models)
+        print(f"mesh phase [{label}: B={B} over {MP['mesh']} entries of the "
+              f"\"scenario\" mesh]: all {B} lanes OPTIMAL as unsharded, each objective "
+              f"within 1e-9 relative of its unsharded lane; "
+              f"wall={wall:.3f} s, {B / wall:.1f} instances/s against unsharded "
+              f"{wall0:.3f} s, {B / wall0:.1f} instances/s; peak {_mib(peak)}", flush=True)
+        runs.append({"label": label, "wall": wall, "launches": launches})
+    return runs
+
+
+def racing_devices_path(dev, refs) -> dict:
+    """(f) racing_solve over a 3-entry device list."""
+    from clp_tpu_torch.constants import ProblemStatus
+    from clp_tpu_torch.parallel.racing import racing_solve
+    from clp_tpu_torch.utils.generators import random_lp
+
+    m, n, d = MP["race"]
+    model = random_lp(m, n, density=d)
+    devs = _devices(dev, 3)
+    sol, wall, peak, launches = timed(dev, lambda: racing_solve(model, devices=devs))
+    if sol.status != ProblemStatus.OPTIMAL:
+        raise AssertionError(f"racing over {devs}: status {sol.status!r}")
+    # the dual configuration prices through K1 wherever its gate holds
+    if dev.type == "cuda" and m * (n + m) >= 512 * 1024 and launches["K1"] <= 0:
+        raise AssertionError(f"racing over {devs}: K1 never launched: {launches}")
+    refs.add("racing over 3 devices", model, sol.objective_value)
+    print(f"mesh phase [racing_solve over {devs}: {m} x {n}]: OPTIMAL "
+          f"obj={sol.objective_value!r} (HiGHS checked below), winner "
+          f"{getattr(sol, 'winning_config', None)}, wall={wall:.3f} s, launches={launches}",
+          flush=True)
+    return {"label": "racing", "wall": wall, "launches": launches}
+
+
+def mesh_phase(dev, stair_ref: float, main_pivots: int) -> dict:
+    """Shape buckets and the device mesh, (a)-(g): the bucketed staircase's
+    dual simplex (K1) and barrier, the column-sharded dual engine, SPRINT
+    over a "block" mesh, the scenario-sharded batches, racing over 3
+    devices and the port's multi-device dry run. Returns the K1 launches
+    and the phase's wall."""
+    from clp_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    refs = HighsRefs("mesh phase")
+    try:
+        runs = bucketed_paths(dev, stair_ref, main_pivots)
+        runs.append(colsharded_path(dev, refs, MP["colshard_shards"]))
+        runs.append(block_sprint_path(dev, refs))
+        runs += sharded_batch_paths(dev)
+        runs.append(racing_devices_path(dev, refs))
+        _, wall, _, launches = timed(dev, lambda: dryrun_multichip(_devices(dev, MP["mesh"])))
+        print(f"mesh phase [dryrun_multichip over {_devices(dev, MP['mesh'])}]: both axes "
+              f"ran (scenario IPM, block repricing + SPRINT, column-sharded dual, QP "
+              f"sweep); wall={wall:.3f} s", flush=True)
+        runs.append({"label": "dry run", "wall": wall, "launches": launches})
+        refs.check()
+    finally:
+        refs.close()
+    wall = time.perf_counter() - t_phase
+    print(f"mesh phase: {wall:.1f} s (every mesh entry on {_devices(dev, 1)[0]}: no copy "
+          f"between devices is measured)", flush=True)
+    return {"launches": sum(r["launches"]["K1"] for r in runs), "wall": wall, "runs": runs}
+
+
 def device_profile(prof, n: int, route: str):
     """(device busy us, kernel events, top 10 (name, us)) of a profiled
     window of n pivots; every kernel's time and launches per pivot go to
@@ -2550,6 +2878,7 @@ def profile_batch(dev, pivots: int = 200) -> None:
     from clp_tpu_torch import SolveOptions
     from clp_tpu_torch.parallel import batch as pb
     from clp_tpu_torch.utils.generators import random_lp
+    from clp_tpu_torch.utils.lockstep import run
 
     wm, wn, wd = BP["wide"]
     models = perturbed(random_lp(wm, wn, density=wd), BP["wide_batch"],
@@ -2564,7 +2893,7 @@ def profile_batch(dev, pivots: int = 200) -> None:
     def window(S, n):
         it0 = S["iterations"].clone()
         t0 = time.perf_counter()
-        S = pb._chunk(S, live, E.dual_step, n, opts.inner_unroll, opts.max_iterations)
+        S = run(pb._chunk(S, live, E.dual_step, n, opts.inner_unroll, opts.max_iterations))
         torch.cuda.synchronize()
         return S, int((S["iterations"] - it0).sum()), time.perf_counter() - t0
 
@@ -2743,6 +3072,9 @@ def main() -> int:
     api = api_phase(dev, highs_obj)
     mark("api phase")
     k1["api_phase_launches"] = api["launches"]
+    mesh = mesh_phase(dev, highs_obj, run_k1["iterations"])
+    mark("mesh phase")
+    k1["mesh_phase_launches"] = mesh["launches"]
     factor_launches(barrier_runs)
     mark("factorization launches")
     print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_walls.items())
@@ -2750,7 +3082,8 @@ def main() -> int:
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     extra = ("launch_floor_ms", "above_limit", "auto_phase_launches",
-             "nonlinear_phase_launches", "batch_phase_launches", "api_phase_launches")
+             "nonlinear_phase_launches", "batch_phase_launches", "api_phase_launches",
+             "mesh_phase_launches")
     print(json.dumps({"kernels": [
         {k: rec[k] for k in keys} | {k: v for k, v in rec.items() if k in extra}
         for rec in (k1, k2, k3)]}))
@@ -2813,6 +3146,25 @@ def api_main() -> int:
     return 0
 
 
+def mesh_main() -> int:
+    """`chip_smoke.py --mesh`: the kernels' build and `mesh_phase` alone (the
+    contract run is the one with no arguments)."""
+    import os
+
+    if not torch.cuda.is_available() or "CLPTPU_PLATFORM" in os.environ:
+        print("chip_smoke: no card, or CLPTPU_PLATFORM is set", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from clp_tpu_torch.ops import build
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    build.build_all(["price", "pivot", "price_block"])
+    mesh_phase(torch.device("cuda"), highs_objective(staircase_model()),
+               main_path("K1", False)["iterations"])
+    return 0
+
+
 def profiler_cost_main() -> int:
     """`chip_smoke.py --profiler-cost`: in one process, the staircase's K1
     solve twice, then one torch.profiler trace of a single launch, then the
@@ -2836,6 +3188,46 @@ def profiler_cost_main() -> int:
         walls.append(time.perf_counter() - t0)
     print(f"profiler cost: the staircase's K1 solve {walls[0]:.3f} s, {walls[1]:.3f} s, "
           f"then after one trace {walls[2]:.3f} s", flush=True)
+    return 0
+
+
+def race_configs_main() -> int:
+    """`chip_smoke.py --race-configs`: racing's three default
+    configurations, each alone (twice: the first pays its warm-up), one
+    after another, then racing_solve over 3 entries of the card, on
+    racing's LP of the mesh phase (MP["race"]): what the race's threads
+    cost against running the configurations in turn."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    import dataclasses
+
+    from clp_tpu_torch.ops import build
+    from clp_tpu_torch.parallel.racing import default_race_configs, racing_solve
+    from clp_tpu_torch.utils.generators import random_lp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print(f"card: {nvidia_smi()}", flush=True)
+    build.build_all(["price", "pivot", "price_block"])
+    m, n, d = MP["race"]
+    model = random_lp(m, n, density=d)
+    for i, opts in enumerate(default_race_configs()):
+        opts = dataclasses.replace(opts, device="cuda")
+        for rep in range(2):
+            sol, wall, _, launches = timed(torch.device("cuda"),
+                                           lambda: model.copy().initial_solve(opts))
+            print(f"race configs [{m} x {n}]: configuration {i} ({opts.method.name}) alone, "
+                  f"run {rep + 1}: {sol.status!r} obj={sol.objective_value!r}, "
+                  f"iterations={sol.iterations}, wall={wall:.3f} s, "
+                  f"barrier {sol.timings.get('barrier_stats')}, launches={launches}",
+                  flush=True)
+    devs = ["cuda:0"] * 3
+    sol, wall, _, launches = timed(torch.device("cuda"),
+                                   lambda: racing_solve(model, devices=devs))
+    print(f"race configs [{m} x {n}]: racing_solve over {devs}: {sol.status!r}, winner "
+          f"{getattr(sol, 'winning_config', None)}, wall={wall:.3f} s, launches={launches}",
+          flush=True)
     return 0
 
 
@@ -2867,6 +3259,10 @@ if __name__ == "__main__":
         sys.exit(batch_main())
     if args == ["--api"]:
         sys.exit(api_main())
+    if args == ["--mesh"]:
+        sys.exit(mesh_main())
     if args == ["--profiler-cost"]:
         sys.exit(profiler_cost_main())
+    if args == ["--race-configs"]:
+        sys.exit(race_configs_main())
     sys.exit(main())

@@ -33,12 +33,13 @@ import torch
 from ..forms import StandardLP
 from ..ops.linalg import (
     block_tridiag_cholesky,
-    block_tridiag_cholesky_lanes,
+    block_tridiag_cholesky_lanes_prog,
     block_tridiag_solve,
     chol_factor_reg,
-    chol_factor_reg_lanes,
+    chol_factor_reg_lanes_prog,
     chol_solve,
 )
+from ..utils.lockstep import run
 
 
 @dataclasses.dataclass(frozen=True)
@@ -682,7 +683,15 @@ def _lane_metrics(G, b, c, l, u, Q, hl, hu, bnorm, cnorm, x, y, z, w):
 
 
 def ipm_solve_batched(lp: StandardLP, opts: IPMOptions = IPMOptions()) -> IPMResult:
-    """Mehrotra IPM over a batch of same-shape problems on a leading axis B.
+    """Mehrotra IPM over a batch of same-shape problems on a leading axis B
+    (`ipm_batched_prog` run alone)."""
+    return run(ipm_batched_prog(lp, opts))
+
+
+def ipm_batched_prog(lp: StandardLP, opts: IPMOptions = IPMOptions()):
+    """Mehrotra IPM over a batch of same-shape problems on a leading axis B,
+    as a lockstep program (utils/lockstep.py): it yields its host reads,
+    so the lane blocks of a device mesh iterate together.
 
     The JAX package runs ipm_solve under jax.vmap, where its while_loop
     becomes one loop with a per-lane frozen carry and its factorizations'
@@ -690,8 +699,8 @@ def ipm_solve_batched(lp: StandardLP, opts: IPMOptions = IPMOptions()) -> IPMRes
     iterations, a per-lane `done` mask read on the host once per iteration
     for the whole batch, each iteration computed for the lanes still
     running only, and the Newton factorizations escalating their shifts
-    lane by lane (chol_factor_reg_lanes / block_tridiag_cholesky_lanes). So
-    every lane takes the iterations it would take alone. The lane
+    lane by lane (chol_factor_reg_lanes_prog /
+    block_tridiag_cholesky_lanes_prog). So every lane takes the iterations it would take alone. The lane
     arithmetic is ipm_solve's, vmapped. The branches are the batch's:
     dense and banded (opts.band_nb, rows already permuted) normal equations
     for LPs, the H = Q + D^-1 reduction for QPs.
@@ -729,7 +738,7 @@ def ipm_solve_batched(lp: StandardLP, opts: IPMOptions = IPMOptions()) -> IPMRes
             Gd = Gb if d is None else Gb * d[:, None, None, :]
             A = Gd @ Gb.mT + pad_eye + shift * eye_nb
             E = Gd[:, 1:] @ Gb[:, :-1].mT
-            Lb, Cb, _ = block_tridiag_cholesky_lanes(A, E, base_reg=base_reg)
+            Lb, Cb, _ = yield from block_tridiag_cholesky_lanes_prog(A, E, base_reg=base_reg)
             return Lb, Cb
 
         def band_solve(Lb, Cb, r):  # one lane
@@ -737,10 +746,10 @@ def ipm_solve_batched(lp: StandardLP, opts: IPMOptions = IPMOptions()) -> IPMRes
             return block_tridiag_solve(Lb, Cb, rp.reshape(kb, nb)).reshape(-1)[:m]
 
         all_ = torch.arange(Bn, device=device)
-        Lb0, Cb0 = band_factor(all_, None, 1e-12, 0.0)
+        Lb0, Cb0 = yield from band_factor(all_, None, 1e-12, 0.0)
         yls = vmap(band_solve)(Lb0, Cb0, b)
     else:
-        L0, _ = chol_factor_reg_lanes(G @ G.mT, base_reg=1e-12)
+        L0, _ = yield from chol_factor_reg_lanes_prog(G @ G.mT, base_reg=1e-12)
         yls = vmap(chol_solve)(L0, b)
     x_ls = (yls[:, None, :] @ G)[:, 0]
 
@@ -878,7 +887,8 @@ def ipm_solve_batched(lp: StandardLP, opts: IPMOptions = IPMOptions()) -> IPMRes
 
     full = data + (n_active,)
     while True:
-        run = torch.nonzero(~done & (it < opts.max_iter))[:, 0]  # one host read
+        run = torch.as_tensor(np.flatnonzero((yield ~done & (it < opts.max_iter))),
+                              device=device)  # one host read
         if run.numel() == 0:
             break
         d_run = lane(run, full)
@@ -888,15 +898,15 @@ def ipm_solve_batched(lp: StandardLP, opts: IPMOptions = IPMOptions()) -> IPMRes
         G_run = d_run[0]
         if qd:
             H = d_run[5] + torch.diag_embed(torch.clamp(dinv, min=1.0 / opts.free_var_cap))
-            Lh, _ = chol_factor_reg_lanes(H, base_reg=opts.reg_dual)
+            Lh, _ = yield from chol_factor_reg_lanes_prog(H, base_reg=opts.reg_dual)
             M = G_run @ vmap(chol_solve)(Lh, G_run.mT)
-            L, _ = chol_factor_reg_lanes(M, base_reg=opts.reg_dual)
+            L, _ = yield from chol_factor_reg_lanes_prog(M, base_reg=opts.reg_dual)
             fac = (Lh, M, L)
         elif banded:
-            fac = band_factor(run, d, reg, 0.0)
+            fac = yield from band_factor(run, d, reg, 0.0)
         else:
             M = (G_run * d[:, None, :]) @ G_run.mT
-            L, _ = chol_factor_reg_lanes(M, base_reg=opts.reg_dual)
+            L, _ = yield from chol_factor_reg_lanes_prog(M, base_reg=opts.reg_dual)
             fac = (M, L)
         out = vmap(post)(*packed(d_run), *s_run, rb, rc, mu, dinv, *fac)
         for a, v in zip(st, out[:6]):

@@ -27,7 +27,9 @@ callers see on failure is the JAX package's.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
 
 
 def _inverse_from_lu(B: torch.Tensor) -> torch.Tensor:
@@ -190,13 +192,14 @@ def chol_factor_reg(M: torch.Tensor, base_reg: float = 0.0, max_bumps: int = 6):
     return L, delta
 
 
-def chol_factor_reg_lanes(M: torch.Tensor, base_reg: float = 0.0,
-                          max_bumps: int = 6):
+def chol_factor_reg_lanes_prog(M: torch.Tensor, base_reg: float = 0.0,
+                               max_bumps: int = 6):
     """chol_factor_reg over a batch (B, n, n), lane by lane: each matrix
     escalates its own shift, x100 from base_reg, scaled by its own largest
     diagonal entry, as it would alone (the JAX package's while_loop under
     vmap). Only the lanes that failed are factored again; the failure flags
     (cholesky_ex's per-matrix info) are read on the host once per attempt.
+    A lockstep program (utils/lockstep.py): it yields its failure reads.
 
     Returns (L, delta (B,)): L is NaN in a lane whose last attempt failed.
     """
@@ -210,7 +213,7 @@ def chol_factor_reg_lanes(M: torch.Tensor, base_reg: float = 0.0,
 
     L, ok = attempt(torch.arange(M.shape[0], device=M.device))
     for _ in range(max_bumps):
-        fail = torch.nonzero(~ok)[:, 0]
+        fail = torch.as_tensor(np.flatnonzero((yield ~ok)), device=M.device)
         if fail.numel() == 0:
             break
         delta[fail] = torch.maximum(1e-14 * scale[fail], delta[fail] * 100.0)
@@ -318,9 +321,10 @@ def block_tridiag_cholesky(A: torch.Tensor, E: torch.Tensor,
     return L, C, delta
 
 
-def block_tridiag_cholesky_lanes(A: torch.Tensor, E: torch.Tensor,
-                                 base_reg: float = 0.0, max_bumps: int = 6):
-    """block_tridiag_cholesky over a batch, lane by lane.
+def block_tridiag_cholesky_lanes_prog(A: torch.Tensor, E: torch.Tensor,
+                                      base_reg: float = 0.0, max_bumps: int = 6):
+    """block_tridiag_cholesky over a batch, lane by lane, as a lockstep
+    program.
 
     A: (B, k, nb, nb), E: (B, k-1, nb, nb). Each lane's sweep is retried
     with its own escalating shift, as it would be alone; only the lanes
@@ -355,7 +359,7 @@ def block_tridiag_cholesky_lanes(A: torch.Tensor, E: torch.Tensor,
 
     L, C, ok = attempt(torch.arange(Bn, device=A.device))
     for _ in range(max_bumps):
-        fail = torch.nonzero(~ok)[:, 0]
+        fail = torch.as_tensor(np.flatnonzero((yield ~ok)), device=A.device)
         if fail.numel() == 0:
             break
         delta[fail] = torch.maximum(1e-14 * scale[fail], delta[fail] * 100.0)

@@ -127,7 +127,7 @@ class SolveOptions:
     pe_psi: float = 0.5
     # batching / sharding (TPU-native, no reference analogue)
     mesh_axis: str = "scenario"
-    devices: Optional[object] = None  # explicit device mesh (not ported yet)
+    devices: Optional[object] = None  # a parallel.mesh.Mesh ("block" axis: SPRINT's repricing)
     # cleanup: run a finishing simplex on the original model after postsolve
     # if residual infeasibilities remain (reference: ClpSolve.cpp:~3550+)
     cleanup: bool = True

@@ -16,8 +16,14 @@ iteration) under torch.func.vmap and writes that loop out lane by lane:
     the whole batch, and once per refactor round, never once per lane.
 
 On the CPU a lane then gives the bits of its single solve
-(engine._mv keeps the matvecs so). A device mesh is not ported (ROADMAP.md
-queue 1: multi-device).
+(engine._mv keeps the matvecs so).
+
+Over a device mesh (parallel/mesh.py, the "scenario" axis) each entry
+takes a contiguous block of lanes onto its device. The loops above are
+lockstep programs (utils/lockstep.py): every block runs to its next host
+read, then one copy reads all of them, so the blocks advance together with
+one host read per block of pivots (or per IPM iteration) for the whole
+mesh, and no host thread per block.
 """
 
 from __future__ import annotations
@@ -37,17 +43,12 @@ from ..options import SolveOptions
 from ..simplex import engine
 from ..simplex import qp as qpm
 from ..simplex.engine import CONTINUE, NUMERICAL, OPTIMAL, SimplexOptions, SimplexState
+from ..utils.lockstep import host_read, lockstep, run
+from .mesh import scenario_sharding
 
 _LP = ("G", "b", "c", "l", "u")
 _SF = tuple(f.name for f in dataclasses.fields(SimplexState))
 _QF = tuple(f.name for f in dataclasses.fields(qpm.QPState))
-
-
-def no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} over a device mesh is not ported yet "
-            "(ROADMAP.md queue 1: multi-device)")
 
 
 # --------------------------------------------------------------------------
@@ -222,12 +223,13 @@ class _Lanes:
 
 
 def _chunk(S: dict, active: torch.Tensor, step, chunk: int, U: int, max_iter: int,
-           clip: bool = False) -> dict:
+           clip: bool = False):
     """The JAX inner while_loop under vmap: up to `chunk` pivots per lane,
     in blocks of U with one host read per block for the whole batch. A
     lane runs while its own predicate holds; a gated lane keeps its state
     bit for bit. `clip` ends a block at the chunk boundary (the QP loop's
-    blocks); the simplex's self-gating pivots over-run it, as in JAX."""
+    blocks); the simplex's self-gating pivots over-run it, as in JAX. A
+    lockstep program (utils/lockstep.py): it yields its host reads."""
     k = 0
 
     def pred(S, k):
@@ -235,7 +237,7 @@ def _chunk(S: dict, active: torch.Tensor, step, chunk: int, U: int, max_iter: in
                 & (S["iterations"] < max_iter)) if k < chunk else torch.zeros_like(active)
 
     run = active & pred(S, k)
-    while bool(run.any()):
+    while (yield run.any()):
         n = min(U, chunk - k) if clip else U
         for _ in range(n):
             S = gate(run, step(S), S)
@@ -244,14 +246,15 @@ def _chunk(S: dict, active: torch.Tensor, step, chunk: int, U: int, max_iter: in
     return S
 
 
-def lanes_run(S: dict, recompute, verify, step, opts: SimplexOptions,
-              max_chunks: int = 0, claims=(engine.OPTIMAL, engine.PRIMAL_INFEASIBLE,
-                                           engine.DUAL_INFEASIBLE),
-              reclaim: bool = True, U: Optional[int] = None, clip: bool = False):
+def _lanes_prog(S: dict, recompute, verify, step, opts: SimplexOptions,
+                max_chunks: int = 0, claims=(engine.OPTIMAL, engine.PRIMAL_INFEASIBLE,
+                                             engine.DUAL_INFEASIBLE),
+                reclaim: bool = True, U: Optional[int] = None, clip: bool = False):
     """engine._run_loop over a batch of lanes, as jax.vmap runs the JAX
     package's: each lane keeps its own stall count, verification and round
     count, and freezes once its own outer predicate fails. One host read
-    per refactor round for the whole batch. Returns (S, verified)."""
+    per refactor round for the whole batch. A lockstep program; returns
+    (S, verified)."""
     U = max(1, int(opts.inner_unroll)) if U is None else U
     Bn = S["status"].shape[0]
     dev = S["status"].device
@@ -267,7 +270,7 @@ def lanes_run(S: dict, recompute, verify, step, opts: SimplexOptions,
               & (S["iterations"] < opts.max_iterations) & (stalls < 3))
         if max_chunks > 0:
             ok = ok & (rounds < max_chunks)
-        if not bool(ok.any()):
+        if not (yield ok.any()):
             break
         iters_before = S["iterations"]
         claimed_opt = status == OPTIMAL
@@ -277,8 +280,8 @@ def lanes_run(S: dict, recompute, verify, step, opts: SimplexOptions,
         R["status"] = torch.where(
             R["status"] == NUMERICAL, NUMERICAL,
             torch.where(v, OPTIMAL, CONTINUE)).to(status.dtype)
-        R = _chunk(R, ok & ~v, step, opts.refactor_frequency, U, opts.max_iterations,
-                   clip)
+        R = yield from _chunk(R, ok & ~v, step, opts.refactor_frequency, U,
+                              opts.max_iterations, clip)
         reclaimed = claimed_term & (R["status"] == status) & (R["iterations"] == iters_before)
         v = v | reclaimed
         made = (R["iterations"] > iters_before) | v
@@ -290,7 +293,7 @@ def lanes_run(S: dict, recompute, verify, step, opts: SimplexOptions,
     S["status"] = torch.where((S["status"] == CONTINUE) & (stalls >= 3), NUMERICAL,
                               S["status"]).to(S["status"].dtype)
     # final consistency pass (already on fresh factors where verified)
-    if bool((~verified).any()):
+    if (yield (~verified).any()):
         S = gate(verified, S, recompute(S))
     S["status"] = torch.where(
         (S["status"] == CONTINUE) & (S["iterations"] >= opts.max_iterations),
@@ -307,10 +310,12 @@ def _bprep(E: _Lanes, S: dict) -> dict:
     return E.make_dual_feasible(E.recompute(S))
 
 
-def _brounds(E: _Lanes, S: dict, rounds: int):
+def _brounds_prog(E: _Lanes, S: dict, rounds: int):
     """`rounds` refactor-chunks of the full claim protocol per lane
-    (engine.dual_solve_rounds, lane by lane). Returns (S, verified)."""
-    return lanes_run(S, E.recompute, E.verify_dual, E.dual_step, E.opts, max_chunks=rounds)
+    (engine.dual_solve_rounds, lane by lane). A lockstep program; returns
+    (S, verified)."""
+    return (yield from _lanes_prog(S, E.recompute, E.verify_dual, E.dual_step, E.opts,
+                                   max_chunks=rounds))
 
 
 def _bchunk(E: _Lanes, S: dict):
@@ -323,35 +328,42 @@ def _bchunk(E: _Lanes, S: dict):
     v = claimed & E.verify_dual(R) & (R["status"] != NUMERICAL)
     R["status"] = torch.where(R["status"] == NUMERICAL, NUMERICAL,
                               torch.where(v, OPTIMAL, CONTINUE)).to(S["status"].dtype)
-    R = _chunk(R, ~v, E.dual_step, o.refactor_frequency, max(1, int(o.inner_unroll)),
-               o.max_iterations)
+    R = run(_chunk(R, ~v, E.dual_step, o.refactor_frequency, max(1, int(o.inner_unroll)),
+                   o.max_iterations))
     return R, v, E.objective(R)
 
 
-def _brerun(E: _Lanes, S: dict, need: torch.Tensor) -> dict:
+def _lanes_of(mask: torch.Tensor):
+    """The indices where `mask` holds, read on the host (a lockstep read)."""
+    v = yield mask
+    return torch.as_tensor(np.flatnonzero(v), device=mask.device)
+
+
+def _brerun_prog(E: _Lanes, S: dict, need: torch.Tensor):
     """Re-solve the lanes `need` from their own bases (the fake-bound
     escalation): recompute, make dual feasible, a whole dual solve."""
-    idx = torch.nonzero(need)[:, 0]
+    idx = yield from _lanes_of(need)
     Es = E.take(idx)
     sub = take(S, idx)
     sub["status"] = torch.full_like(sub["status"], CONTINUE)
     sub = _bprep(Es, sub)
-    sub, _ = lanes_run(sub, Es.recompute, Es.verify_dual, Es.dual_step, Es.opts)
+    sub, _ = yield from _lanes_prog(sub, Es.recompute, Es.verify_dual, Es.dual_step, Es.opts)
     return put(S, idx, sub)
 
 
-def _bprimal_finish(E: _Lanes, S: dict, need: torch.Tensor) -> dict:
+def _bprimal_finish_prog(E: _Lanes, S: dict, need: torch.Tensor):
     """The lanes `need` park their fake-bound nonbasics at 0 as FREE and
     finish with the primal on the true bounds (resetFakeBounds + primal
     cleanup, ClpSimplexDual.cpp:8303)."""
-    idx = torch.nonzero(need)[:, 0]
+    idx = yield from _lanes_of(need)
     Es = E.take(idx)
     sub = take(S, idx)
     vs = sub["vstat"]
     sub["vstat"] = torch.where(_fake(Es.lpd, vs), engine.FREE, vs).to(vs.dtype)
     sub["status"] = torch.full_like(sub["status"], CONTINUE)
     sub = Es.recompute(sub)
-    sub, _ = lanes_run(sub, Es.recompute, Es.verify_primal, Es.primal_step, Es.opts)
+    sub, _ = yield from _lanes_prog(sub, Es.recompute, Es.verify_primal, Es.primal_step,
+                                    Es.opts)
     return put(S, idx, sub)
 
 
@@ -365,7 +377,7 @@ def _fake_lanes(lpd: dict, S: dict) -> torch.Tensor:
     return _fake(lpd, S["vstat"]).any(dim=1)
 
 
-def _compacting_dual_loop(E: _Lanes, S: dict, rounds_per_dispatch: int = 6) -> dict:
+def _compacting_prog(E: _Lanes, S: dict, rounds_per_dispatch: int = 6):
     """The batched dual simplex with live-set compaction.
 
     Runs a bounded number of refactor-chunks per dispatch (the whole
@@ -373,7 +385,8 @@ def _compacting_dual_loop(E: _Lanes, S: dict, rounds_per_dispatch: int = 6) -> d
     is settled and packs the survivors together, so finished lanes stop
     costing work. The JAX package pads the survivors to a power of two to
     bound its compiled programs; nothing compiles here, so the live set is
-    packed exactly. One packed host read per dispatch."""
+    packed exactly. One packed host read per dispatch; a lockstep program,
+    so over a mesh each shard compacts its own lanes."""
     o = E.opts
     Bn = S["status"].shape[0]
     dev = S["status"].device
@@ -384,10 +397,10 @@ def _compacting_dual_loop(E: _Lanes, S: dict, rounds_per_dispatch: int = 6) -> d
     prev_iters = np.full(Bn, -1, dtype=np.int64)
     stall = np.zeros(Bn, dtype=np.int64)
     for _ in range(max_disp):
-        S, ver = _brounds(E, S, rounds_per_dispatch)
-        stat, ver_np, iters = torch.stack(
+        S, ver = yield from _brounds_prog(E, S, rounds_per_dispatch)
+        stat, ver_np, iters = yield torch.stack(
             [S["status"].to(torch.int64), ver.to(torch.int64),
-             S["iterations"].to(torch.int64)]).cpu().numpy()
+             S["iterations"].to(torch.int64)])
         ver_np = ver_np.astype(bool)
         # settled: verified claims and hard stops. A lane whose terminal
         # claim persists unverified with no pivots over two dispatches is
@@ -431,6 +444,30 @@ def _engine_options(options: SolveOptions, m0: int, accel: bool) -> SimplexOptio
     )
 
 
+def _placed(mesh, options: SolveOptions, batched: StandardLP) -> list:
+    """The batch's lane blocks, each a StandardLP on its device: one per
+    mesh entry (contiguous blocks, as scenario_sharding splits them), or
+    the whole batch on options.device without a mesh."""
+    B = batched.G.shape[0]
+    if mesh is None:
+        blocks = [((0, B), resolve_device(options.device))]
+    else:
+        blocks = zip(scenario_sharding(mesh, options.mesh_axis).bounds(B), mesh.devices)
+    return [StandardLP(**{k: None if getattr(batched, k) is None
+                          else getattr(batched, k)[a:b].to(dev) for k in _LP + ("Q",)})
+            for (a, b), dev in blocks]
+
+
+def _each(flags, progs) -> list:
+    """Run the programs whose flag holds in lockstep; None for the rest."""
+    on = [i for i, f in enumerate(flags) if f]
+    res = lockstep([progs[i]() for i in on])
+    out = [None] * len(flags)
+    for i, r in zip(on, res):
+        out[i] = r
+    return out
+
+
 def solve_batch_dual_simplex(
     models: Sequence[Model],
     options: Optional[SolveOptions] = None,
@@ -443,54 +480,69 @@ def solve_batch_dual_simplex(
     switching) run batched where they can: lanes that end on a fake bound
     re-solve with a larger bound, then finish with the primal, still as one
     batch. Only numerical leftovers go through the single-instance driver.
+
+    Over a `mesh` (axis options.mesh_axis) each entry runs its contiguous
+    block of lanes on its device; the blocks advance in lockstep, one host
+    read per block of pivots for the whole mesh, and each compacts its own
+    live set. The escalation decisions stay the batch's, as without a mesh.
     """
     from ..simplex.driver import _extract, _warm_state, simplex_solve
 
     options = options or SolveOptions()
-    no_mesh(mesh, "the batched dual simplex")
-    device = resolve_device(options.device)
-    batched, _infos = stack_models_simplex(models, device)
-    accel = on_accelerator(batched.G)
+    batched, _infos = stack_models_simplex(models, "cpu")
+    shards = _placed(mesh, options, batched)
+    accel = on_accelerator(shards[0].G)
     if accel:
         check_fp32_precision()
     m0, nt0 = batched.G.shape[1:]
     opts = _engine_options(options, m0, accel)
-    lpd = _lpd(batched)
-    E = _Lanes(lpd, opts)
-    if warm is not None and warm.column_status is not None:
-        # a shared warm basis (e.g. strong branching from one parent): each
-        # lane's warm state built on the host, then stacked
-        per = [_warm_state(_lp(lane(lpd, i)), opts, warm, nt0 - m0, m0)
-               for i in range(len(models))]
-        S = {k: torch.stack([getattr(p, k) for p in per]) for k in _SF}
-    else:
-        S = E.initial_state()
+    Es, Ss = [], []
+    for lp_s in shards:
+        lpd = _lpd(lp_s)
+        E = _Lanes(lpd, opts)
+        if warm is not None and warm.column_status is not None:
+            # a shared warm basis (e.g. strong branching from one parent):
+            # each lane's warm state built on the host, then stacked
+            per = [_warm_state(_lp(lane(lpd, i)), opts, warm, nt0 - m0, m0)
+                   for i in range(lp_s.G.shape[0])]
+            S = {k: torch.stack([getattr(p, k) for p in per]) for k in _SF}
+        else:
+            S = E.initial_state()
+        Es.append(E)
+        Ss.append(S)
 
-    S = _compacting_dual_loop(E, S)
+    Ss = lockstep([_compacting_prog(E, S) for E, S in zip(Es, Ss)])
 
-    stat_t = S["status"]
-    fakes = _fake_lanes(lpd, S)
+    lpds = [E.lpd for E in Es]
+    fakes = [_fake_lanes(lpd, S) for lpd, S in zip(lpds, Ss)]
     opts_e = opts
     for _ in range(2):
-        need = (stat_t == OPTIMAL) & fakes
-        if not bool(need.any()):
+        need = [(S["status"] == OPTIMAL) & f for S, f in zip(Ss, fakes)]
+        flags = host_read([n.any() for n in need])
+        if not any(flags):
             break
         opts_e = dataclasses.replace(opts_e, dual_bound=opts_e.dual_bound * 100.0)
-        E = E.with_opts(opts_e)
-        S = _brerun(E, S, need)
-        stat_t, fakes = S["status"], _fake_lanes(lpd, S)
+        Es = [E.with_opts(opts_e) for E in Es]
+        re = _each(flags, [lambda i=i: _brerun_prog(Es[i], Ss[i], need[i])
+                           for i in range(len(Es))])
+        Ss = [S if r is None else r for S, r in zip(Ss, re)]
+        fakes = [_fake_lanes(lpd, S) for lpd, S in zip(lpds, Ss)]
     # OPTIMAL on a fake bound needs the true-bounds primal finish; an
     # infeasibility claim with fakes active is suspect for the same reason
     # the driver adjudicates it (a folded free variable prices one way)
-    need_pf = ((stat_t == OPTIMAL) | (stat_t == engine.PRIMAL_INFEASIBLE)) & fakes
-    if bool(need_pf.any()):
-        S = _bprimal_finish(E, S, need_pf)
-        fakes = _fake_lanes(lpd, S)
+    need_pf = [((S["status"] == OPTIMAL) | (S["status"] == engine.PRIMAL_INFEASIBLE)) & f
+               for S, f in zip(Ss, fakes)]
+    flags = host_read([n.any() for n in need_pf])
+    if any(flags):
+        re = _each(flags, [lambda i=i: _bprimal_finish_prog(Es[i], Ss[i], need_pf[i])
+                           for i in range(len(Es))])
+        Ss = [S if r is None else r for S, r in zip(Ss, re)]
+        fakes = [_fake_lanes(lpd, S) for lpd, S in zip(lpds, Ss)]
 
-    # one transfer of the batch to the host, then numpy per lane
-    S_h = {k: v.cpu() for k, v in S.items()}
-    lp_h = {k: v.cpu() for k, v in lpd.items()}
-    fakes_h = fakes.cpu().numpy()
+    # one transfer of each block to the host, then numpy per lane
+    S_h = {k: torch.cat([S[k].cpu() for S in Ss]) for k in _SF}
+    lp_h = {k: torch.cat([lpd[k].cpu() for lpd in lpds]) for k in _LP}
+    fakes_h = torch.cat([f.cpu() for f in fakes]).numpy()
     out = []
     for i, mod in enumerate(models):
         st_i = SimplexState(**lane(S_h, i))
@@ -521,10 +573,10 @@ def solve_batch_ipm(
     banded plan where RCM on the union pattern makes it pay (the reference's
     symbolic/numeric split, ClpCholeskyBase.cpp:638: order once, factor
     many), else run the dense normal equations."""
+    from ..interior.mehrotra import ipm_batched_prog
     from ..solve import _ipm_to_solution, _rcm_band_plan
 
-    no_mesh(mesh, "the batched IPM")
-    batched, infos = stack_models(models, options.device)
+    batched, infos = stack_models(models, options.device if mesh is None else "cpu")
     opts = IPMOptions(tol=options.barrier_tolerance, max_iter=options.barrier_max_iterations)
     perm = None
     if batched.Q is None:
@@ -536,9 +588,18 @@ def solve_batch_ipm(
             batched = dataclasses.replace(batched, G=batched.G.index_select(1, pj),
                                           b=batched.b.index_select(1, pj))
             opts = dataclasses.replace(opts, band_nb=nb)
-    res = ipm_solve_batched(batched, opts)
-    res = dataclasses.replace(res, **{f.name: getattr(res, f.name).cpu()
-                                      for f in dataclasses.fields(res)})
+    if mesh is None:
+        res = ipm_solve_batched(batched, opts)
+        res = dataclasses.replace(res, **{f.name: getattr(res, f.name).cpu()
+                                          for f in dataclasses.fields(res)})
+    else:
+        # each entry's block of lanes on its device, the IPM iterations of
+        # all blocks in lockstep; the results meet on the host
+        parts = lockstep([ipm_batched_prog(lp_s, opts)
+                          for lp_s in _placed(mesh, options, batched)])
+        res = dataclasses.replace(parts[0], **{
+            f.name: torch.cat([getattr(r, f.name).cpu() for r in parts])
+            for f in dataclasses.fields(parts[0])})
     if perm is not None:
         y = torch.empty_like(res.y)
         y[:, torch.as_tensor(perm)] = res.y
@@ -558,39 +619,15 @@ def solve_batch_ipm(
 # --------------------------------------------------------------------------
 
 
-def solve_batch_qp_simplex(
-    models: Sequence[Model],
-    options: Optional[SolveOptions] = None,
-    mesh=None,
-) -> list[Solution]:
-    """Batched QP active-set simplex: same-shape QPs as one batch.
-
-    The scenario shape this serves is the warm parametric sweep (portfolio
-    rebalancing: one structure, many risk aversions). Phase 1 (a zero-cost
-    dual to a feasible vertex) and the reduced-gradient loop of simplex/qp
-    both run lane by lane over the batch; lanes the batch cannot finish
-    cleanly fall back to the single-instance QP driver."""
-    from ..constants import ProblemStatus
-    from ..simplex.driver import _ENGINE_TO_VS
-
-    options = options or SolveOptions()
-    no_mesh(mesh, "the batched QP simplex")
-    device = resolve_device(options.device)
-    batched, infos = stack_models_simplex(models, device)
-    if batched.Q is None:
-        raise ValueError("solve_batch_qp_simplex needs quadratic objectives"
-                         " (use solve_batch_dual_simplex for LPs)")
-    m0, nt0 = batched.G.shape[1:]
-    n0 = nt0 - m0
-    opts = SimplexOptions(
-        refactor_frequency=options.refactor_frequency or 100,
-        max_iterations=int(min(options.max_iterations or 10 ** 9, 50 * (m0 + n0) + 10000)),
-    )
-    lpd = _lpd(batched)
+def _qp_prog(lp: StandardLP, opts: SimplexOptions):
+    """One block of QP lanes: phase 1 (the zero-cost dual) and the
+    reduced-gradient loop, as a lockstep program. Returns (phase-1 lanes,
+    QP lanes, duals y per lane)."""
+    lpd = _lpd(lp)
     lpd0 = dict(lpd, c=torch.zeros_like(lpd["c"]))
     E0 = _Lanes(lpd0, opts)
     S0 = _bprep(E0, E0.initial_state())
-    S0, _ = lanes_run(S0, E0.recompute, E0.verify_dual, E0.dual_step, opts)
+    S0, _ = yield from _lanes_prog(S0, E0.recompute, E0.verify_dual, E0.dual_step, opts)
 
     def q0(l, s):
         xn = engine.nonbasic_values(_lp(l), s["vstat"], opts.dual_bound)
@@ -601,7 +638,7 @@ def solve_batch_qp_simplex(
                 "refactor_now": torch.zeros_like(s["refactor_now"])}
 
     Q = vmap(q0)(lpd0, S0)
-    qlpd = dict(lpd, Q=batched.Q)
+    qlpd = dict(lpd, Q=lp.Q)
 
     def qlp(l):
         return StandardLP(**l)
@@ -621,20 +658,54 @@ def solve_batch_qp_simplex(
             return _sd(qpm._gate(run, new, st), _QF)
         return vmap(one)(qlpd, S)
 
-    Q, _ = lanes_run(Q, rec, ver, step, opts, claims=(OPTIMAL,), reclaim=False,
-                     U=qpm.QP_BLOCK, clip=True)
+    Q, _ = yield from _lanes_prog(Q, rec, ver, step, opts, claims=(OPTIMAL,), reclaim=False,
+                                  U=qpm.QP_BLOCK, clip=True)
+    grad = vmap(lambda l, x: qpm._gradient(qlp(l), x))(qlpd, Q["x"])
+    y_all = vmap(lambda g, bs, bi: g.index_select(0, bs) @ bi)(grad, Q["basis"], Q["binv"])
+    return S0, Q, y_all
+
+
+def solve_batch_qp_simplex(
+    models: Sequence[Model],
+    options: Optional[SolveOptions] = None,
+    mesh=None,
+) -> list[Solution]:
+    """Batched QP active-set simplex: same-shape QPs as one batch.
+
+    The scenario shape this serves is the warm parametric sweep (portfolio
+    rebalancing: one structure, many risk aversions). Phase 1 (a zero-cost
+    dual to a feasible vertex) and the reduced-gradient loop of simplex/qp
+    both run lane by lane over the batch; lanes the batch cannot finish
+    cleanly fall back to the single-instance QP driver. Over a `mesh` each
+    entry runs its contiguous block of lanes, all blocks in lockstep."""
+    from ..constants import ProblemStatus
+    from ..simplex.driver import _ENGINE_TO_VS
+
+    options = options or SolveOptions()
+    batched, infos = stack_models_simplex(models, "cpu")
+    if batched.Q is None:
+        raise ValueError("solve_batch_qp_simplex needs quadratic objectives"
+                         " (use solve_batch_dual_simplex for LPs)")
+    m0, nt0 = batched.G.shape[1:]
+    n0 = nt0 - m0
+    opts = SimplexOptions(
+        refactor_frequency=options.refactor_frequency or 100,
+        max_iterations=int(min(options.max_iterations or 10 ** 9, 50 * (m0 + n0) + 10000)),
+    )
+    parts = lockstep([_qp_prog(lp_s, opts) for lp_s in _placed(mesh, options, batched)])
+    S0 = {k: torch.cat([p[0][k].cpu() for p in parts]) for k in ("status", "iterations")}
+    Q = {k: torch.cat([p[1][k].cpu() for p in parts]) for k in _QF if k != "binv"}
+    y_all = torch.cat([p[2].cpu() for p in parts])
 
     status_map = {
         OPTIMAL: ProblemStatus.OPTIMAL,
         engine.DUAL_INFEASIBLE: ProblemStatus.DUAL_INFEASIBLE,
         engine.ITER_LIMIT: ProblemStatus.STOPPED,
     }
-    grad = vmap(lambda l, x: qpm._gradient(qlp(l), x))(qlpd, Q["x"])
-    y_all = vmap(lambda g, bs, bi: g.index_select(0, bs) @ bi)(grad, Q["basis"], Q["binv"])
-    p1 = S0["status"].cpu().numpy()
-    p1_it = S0["iterations"].cpu().numpy()
-    Qh = {k: v.cpu().numpy() for k, v in Q.items() if k != "binv"}
-    y_h = y_all.cpu().numpy()
+    p1 = S0["status"].numpy()
+    p1_it = S0["iterations"].numpy()
+    Qh = {k: v.numpy() for k, v in Q.items()}
+    y_h = y_all.numpy()
     out = []
     for i, (mod, info) in enumerate(zip(models, infos)):
         st = int(Qh["status"][i])

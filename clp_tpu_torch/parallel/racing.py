@@ -3,7 +3,8 @@
 Reference: ClpRacingSolver (ClpRacingSolver.hpp:12-26) races {dual,
 primal+idiot, primal+sprint} clones on std::threads with an atomic abort.
 Here each configuration runs on its own thread and, on the card, on its
-own CUDA stream of the one device; the first OPTIMAL result wins and is
+own CUDA stream of its device (configuration i on devices[i % len(devices)]
+when a device list is given); the first OPTIMAL result wins and is
 installed on the model. Once a winner is in, the others stop at their next
 event (the reference's atomic abort; the JAX package lets them run on and
 waits up to 60 s for each): a copy with no event handler of its own gets
@@ -50,15 +51,14 @@ def racing_solve(
     configs: Optional[Sequence[SolveOptions]] = None,
     devices: Optional[Sequence] = None,
 ) -> Solution:
-    """Race `configs` on threads; `devices` (at most one) overrides each
-    configuration's device."""
+    """Race `configs` on threads. Given `devices`, configuration i runs on
+    devices[i % len(devices)], as in the JAX package; without, each on its
+    own `device`."""
     configs = list(configs or default_race_configs())
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            "racing across several devices is not ported yet "
-            "(ROADMAP.md queue 1: multi-device)")
     if devices:
-        configs = [dataclasses.replace(o, device=devices[0]) for o in configs]
+        devices = list(devices)
+        configs = [dataclasses.replace(o, device=devices[i % len(devices)])
+                   for i, o in enumerate(configs)]
     winner: dict = {"results": []}
     lock = threading.Lock()
     done = threading.Event()

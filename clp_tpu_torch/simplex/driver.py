@@ -681,6 +681,71 @@ def _orig_state(st: SimplexState, perm, inv) -> SimplexState:
                                basis=perm.index_select(0, st.basis))
 
 
+def _bucket_shape(m: int, n: int, bucket: int) -> tuple[int, int]:
+    return (-(-m // bucket) * bucket, -(-n // bucket) * bucket)
+
+
+def _bucketed_solve(model: Model, options: SolveOptions, dual: bool,
+                    warm: Optional[Solution]) -> Solution:
+    """Pad (rows, cols) up to the shape bucket with inert padding, solve,
+    strip. Pad rows are all-zero with [0,0] bounds (their fixed slacks
+    stay basic and decoupled: FTRAN components are identically zero, so
+    they never block a ratio test); pad columns are all-zero with cost 0
+    and [0,0] bounds (reduced cost identically zero: never priced in).
+    The JAX package does this so nearby shapes share one compiled pivot
+    program; nothing compiles here, and the promise kept is the same: the
+    padded solve gives the unpadded answer, at the model's sizes.
+    """
+    import scipy.sparse as sp_
+
+    m, n = model.num_rows, model.num_cols
+    m2, n2 = _bucket_shape(m, n, options.shape_bucket)
+    k, p = m2 - m, n2 - n
+    A = model.matrix
+    padded = model.copy()
+    padded.load_problem(
+        sp_.bmat(
+            [[A, sp_.csc_matrix((m, p)) if p else None],
+             [sp_.csc_matrix((k, n)) if k else None,
+              sp_.csc_matrix((k, p)) if (k and p) else None]],
+            format="csc",
+        ) if (k or p) else A,
+        np.concatenate([model.col_lower, np.zeros(p)]),
+        np.concatenate([model.col_upper, np.zeros(p)]),
+        np.concatenate([model.objective, np.zeros(p)]),
+        np.concatenate([model.row_lower, np.zeros(k)]),
+        np.concatenate([model.row_upper, np.zeros(k)]),
+    )
+    padded.objective_offset = model.objective_offset
+    padded.optimization_direction = model.optimization_direction
+    pwarm = warm
+    if warm is not None:
+        pwarm = dataclasses.replace(warm) if dataclasses.is_dataclass(warm) else warm
+        if warm.column_status is not None:
+            pwarm.column_status = np.concatenate([
+                np.asarray(warm.column_status),
+                np.full(p, int(VariableStatus.FIXED), dtype=np.int8)])
+            pwarm.row_status = np.concatenate([
+                np.asarray(warm.row_status),
+                np.full(k, int(VariableStatus.BASIC), dtype=np.int8)])
+        if warm.primal is not None:
+            pwarm.primal = np.concatenate([np.asarray(warm.primal), np.zeros(p)])
+            if warm.row_activity is not None:
+                pwarm.row_activity = np.concatenate(
+                    [np.asarray(warm.row_activity), np.zeros(k)])
+    opts2 = dataclasses.replace(options, shape_bucket=0)
+    sol = simplex_solve(padded, opts2, dual, warm=pwarm)
+    for name, size in (("primal", n), ("reduced_costs", n),
+                       ("column_status", n), ("infeasibility_ray", m),
+                       ("unbounded_ray", n), ("duals", m),
+                       ("row_activity", m), ("row_status", m)):
+        v = getattr(sol, name, None)
+        if v is not None:
+            setattr(sol, name, np.asarray(v)[:size])
+    model.solution = sol
+    return sol
+
+
 def simplex_solve(
     model: Model,
     options: SolveOptions,
@@ -688,9 +753,8 @@ def simplex_solve(
     warm: Optional[Solution] = None,
 ) -> Solution:
     bucket = int(getattr(options, "shape_bucket", 0) or 0)
-    if bucket > 0:
-        raise NotImplementedError(
-            "shape_bucket > 0 is not ported yet (ROADMAP.md queue 1: shape_bucket)")
+    if bucket > 0 and (model.num_rows % bucket or model.num_cols % bucket):
+        return _bucketed_solve(model, options, dual, warm)
     device = resolve_device(getattr(options, "device", "cuda"))
     lp, info = to_standard_form(model, device=device)
     m, nt = lp.G.shape

@@ -223,46 +223,14 @@ def recompute(lp: StandardLP, state: SimplexState, dual_bound) -> SimplexState:
     xn = nonbasic_values(lp, state.vstat, dual_bound)
     rhs = b - _mv(G, xn)
     cb = c.index_select(0, state.basis)
-    if state.binv.dtype != G.dtype:
-        binv32, ok = lu_refactor32(B)
-        f32 = binv32.dtype
-
-        # trouble spot: torch lets a 0-dim or f32 operand yield to the other
-        # dtype, so every f32 <-> f64 crossing here is an explicit cast
-        def prec(v):  # f32 preconditioner application, f64 in/out
-            return _mv(binv32, v.to(f32)).to(G.dtype)
-
-        def prec_t(v):
-            return (v.to(f32) @ binv32).to(G.dtype)
-
-        xb = prec(rhs)
-        y = prec_t(cb)
-        for _ in range(3):
-            xb = xb + prec(rhs - _mv(B, xb))
-            y = y + prec_t(cb - y @ B)
-        resid = (rhs - _mv(B, xb)).abs().amax() / (
-            1.0 + torch.clamp_min(rhs.abs().amax(), 0.0))
-        ok = ok & torch.isfinite(resid) & (resid < 1e-9)
-        binv_store = binv32
-        # devex reference-framework restart (primal weights): bounded drift
-        # under the f32 pivot loop, same lesson as the DSE reset below
-        wcol = torch.ones_like(state.wcol)
-    else:
-        binv, ok = lu_refactor(B)
-        xb = _mv(binv, rhs)
-        y = cb @ binv
-        binv_store = binv
-        wcol = state.wcol
+    mixed = state.binv.dtype != G.dtype
+    binv_store, xb, y, weights, ok = refactor_rows(B, rhs, cb, mixed)
+    # devex reference-framework restart (primal weights) under the f32
+    # pivot loop: bounded drift, same lesson as the DSE reset
+    wcol = torch.ones_like(state.wcol) if mixed else state.wcol
     dj = c - y @ G
     dj = torch.where(state.vstat == BASIC, 0.0, dj)
     status = torch.where(ok, state.status, NUMERICAL).to(state.status.dtype)
-    # reset DSE weights to exact steepest-edge norms ||e_r'B^-1||^2 on the
-    # fresh factors (ClpDualRowSteepest full-mode reset). The incremental
-    # Forrest-Goldfarb update drifts — harmlessly in f64 over one solve,
-    # but under the f32 pivot loop unbounded drift was observed to starve
-    # the most-infeasible rows of selection and stall convergence.
-    bs = binv_store.to(G.dtype)
-    weights = torch.clamp_min((bs * bs).sum(dim=1), 1e-8)
     return dataclasses.replace(
         state,
         binv=binv_store,
@@ -275,6 +243,47 @@ def recompute(lp: StandardLP, state: SimplexState, dual_bound) -> SimplexState:
         refactor_now=torch.zeros((), dtype=torch.bool, device=G.device),
         refactors=state.refactors + 1,
     )
+
+
+def refactor_rows(B: torch.Tensor, rhs: torch.Tensor, cb: torch.Tensor, mixed: bool):
+    """The row-space half of `recompute`: factor the basis matrix B and
+    solve x_B = B^-1 rhs and y' = cb' B^-1, then the exact DSE weights.
+    Returns (binv as stored, xb, y, weights, ok). The column-sharded engine
+    (parallel/colshard.py) calls it with B gathered from the shards."""
+    if mixed:
+        binv32, ok = lu_refactor32(B)
+        f32 = binv32.dtype
+
+        # trouble spot: torch lets a 0-dim or f32 operand yield to the other
+        # dtype, so every f32 <-> f64 crossing here is an explicit cast
+        def prec(v):  # f32 preconditioner application, f64 in/out
+            return _mv(binv32, v.to(f32)).to(B.dtype)
+
+        def prec_t(v):
+            return (v.to(f32) @ binv32).to(B.dtype)
+
+        xb = prec(rhs)
+        y = prec_t(cb)
+        for _ in range(3):
+            xb = xb + prec(rhs - _mv(B, xb))
+            y = y + prec_t(cb - y @ B)
+        resid = (rhs - _mv(B, xb)).abs().amax() / (
+            1.0 + torch.clamp_min(rhs.abs().amax(), 0.0))
+        ok = ok & torch.isfinite(resid) & (resid < 1e-9)
+        binv_store = binv32
+    else:
+        binv, ok = lu_refactor(B)
+        xb = _mv(binv, rhs)
+        y = cb @ binv
+        binv_store = binv
+    # reset DSE weights to exact steepest-edge norms ||e_r'B^-1||^2 on the
+    # fresh factors (ClpDualRowSteepest full-mode reset). The incremental
+    # Forrest-Goldfarb update drifts — harmlessly in f64 over one solve,
+    # but under the f32 pivot loop unbounded drift was observed to starve
+    # the most-infeasible rows of selection and stall convergence.
+    bs = binv_store.to(B.dtype)
+    weights = torch.clamp_min((bs * bs).sum(dim=1), 1e-8)
+    return binv_store, xb, y, weights, ok
 
 
 def _basic_bounds(lp: StandardLP, basis):
@@ -494,10 +503,15 @@ def _smallest_k(t32: torch.Tensor, K: int) -> torch.Tensor:
     The JAX package takes them with lax.top_k(-t, K), which orders ties by
     index and compares floats in IEEE total order (-0.0 before +0.0).
     torch.topk does neither (on [1,0,0,0,2], K=3 it gave [1,3,2]), so this
-    is a stable sort over a total-order integer key of the f32 bits.
+    is a stable sort over a total-order integer key of the float bits
+    (f32 here; the block mesh's repricing passes f64).
     """
-    bits = t32.view(torch.int32)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    if t32.dtype == torch.float64:
+        bits = t32.view(torch.int64)
+        key = bits ^ ((bits >> 63) & 0x7FFFFFFFFFFFFFFF)
+    else:
+        bits = t32.view(torch.int32)
+        key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
     return torch.sort(key, stable=True).indices[:K]
 
 
@@ -527,6 +541,147 @@ def pivot_invariants(lp: StandardLP, opts: SimplexOptions):
         "idx_m": torch.arange(m, device=dev),
         "one": torch.ones((), dtype=lp.G.dtype, device=dev),
     }
+
+
+# The dual pivot's steps, written once for this engine and the
+# column-sharded one (parallel/colshard.py). The row-space steps (row_*,
+# pe_scores, dse_weights, binv_update) run where B^-1 lives; the
+# column-local ones run over one block of columns: the whole row here, one
+# shard there. What crosses blocks (the minima, the argmax, the
+# breakpoints) is the caller's.
+
+
+def row_scores(infeas, weights, opts: SimplexOptions) -> torch.Tensor:
+    """The leaving row's scores, steepest edge (ClpDualRowSteepest) or
+    Dantzig; -inf on the primal feasible rows."""
+    cand = infeas > opts.primal_tolerance
+    if opts.dual_pivot == "dantzig":
+        return torch.where(cand, infeas, -_INF)
+    return torch.where(cand, infeas * infeas / torch.clamp_min(weights, 1e-50), -_INF)
+
+
+def pe_scores(score, v, zz, opts: SimplexOptions) -> torch.Tensor:
+    """Positive Edge: a random combination z of the dual-degenerate
+    nonbasic columns FTRANs (v = B^-1 G z) to ~0 in the compatible rows,
+    where the ratio test is unlikely to return a zero-dj entering column (a
+    degenerate dual step); those rows are preferred while their best score
+    is within pe_psi of the best. zz = z'z."""
+    nrm = torch.sqrt(torch.clamp_min(zz, 1.0))
+    compat = v.abs() <= 1e-8 * nrm
+    score_c = torch.where(compat, score, -_INF)
+    bests = torch.stack([score, score_c]).amax(dim=1)
+    return torch.where(bests[1] >= opts.pe_psi * bests[0], score_c, score)
+
+
+def row_scalars(r, above, below, infeas, weights, xb, lb, ub, one, ptol: float):
+    """Every row-r scalar the pivot needs, in ONE gather (r stays on the
+    device: x[r] with a tensor index would sync the host every pivot):
+    (infeas_r, w_r, xb_r, lb_r, ub_r, sigma, any_infeas), sigma = +1 where
+    the leaving variable leaves at its upper bound."""
+    row_stack = torch.stack([above, below, infeas, weights, xb, lb, ub])
+    above_r, below_r, infeas_r, w_r, xb_r, lb_r, ub_r = (
+        row_stack.index_select(1, r.reshape(1))[:, 0].unbind(0))
+    sigma = torch.where(above_r > below_r, one, -one)
+    # argmax r maximizes score, which is -inf only where the row is
+    # feasible: the gathered row decides any_infeas without a second
+    # m-reduction
+    return infeas_r, w_r, xb_r, lb_r, ub_r, sigma, infeas_r > ptol
+
+
+def dense_price(rho, G, G32, mixed: bool) -> torch.Tensor:
+    """alpha = rho'G, against the f32 copy of G in the mixed engine."""
+    if G32 is not None and mixed:
+        return (rho @ G32).to(G.dtype)
+    return rho.to(G.dtype) @ G  # tableau row r, full precision
+
+
+def ratio_columns(alpha, sigma, dj, at_lo, at_up, fixed, sgn, rel: float, pt: float,
+                  relaxed=None):
+    """The eligible columns of the Harris two-pass dual ratio test and
+    their ratios: (a, elig, theta_true, mins2), mins2 the (relaxed, true)
+    minima. `relaxed` is K1's or K3's relaxed ratio where a kernel priced;
+    else it is computed here."""
+    a = sigma * alpha
+    elig = ((at_lo & (a > pt)) | (at_up & (a < -pt))) & ~fixed
+    safe_a = torch.where(elig, a, 1.0)
+    if relaxed is None:
+        theta_relaxed = torch.where(elig, (dj + sgn * rel) / safe_a, _INF)
+    else:
+        theta_relaxed = torch.where(elig, relaxed.to(alpha.dtype), _INF)
+    theta_true = torch.where(elig, dj / safe_a, _INF)
+    # the relaxed minimum is clamped by the true minimum (by the caller)
+    # because under f32 pricing it can undershoot and empty the window
+    mins2 = torch.stack([theta_relaxed, theta_true]).amin(dim=1)
+    return a, elig, theta_true, mins2
+
+
+def window_mags(a, elig, theta_true, theta_max) -> torch.Tensor:
+    """|a| inside the Harris window theta <= theta_max, else -inf."""
+    return torch.where(elig & (theta_true <= theta_max), a.abs(), -_INF)
+
+
+def breakpoints(a, elig, theta_true, pre) -> tuple:
+    """BFRT's breakpoints in f32: (|a|, ratio, the slope each one passed
+    takes off, 0 where not eligible and inf where it cannot be passed)."""
+    a32 = a.abs().to(torch.float32)
+    t32 = torch.where(elig, theta_true, _INF).to(torch.float32)
+    gain = torch.where(elig & pre["boxed"], a32 * pre["width32"], _INF)
+    return a32, t32, torch.where(elig, gain, 0.0)
+
+
+def long_step_mags(a32, t32, elig, boxed, theta_stop, rel: float) -> torch.Tensor:
+    """|a| inside the Harris window around the long step's stop, else
+    -inf. Threshold semantics (strict <) instead of ranks: breakpoints
+    tied with theta_stop stay unpassed (still eligible). The window
+    theta <= stop + rel/|a| is multiplied through by |a| to avoid the
+    divide."""
+    passed = elig & boxed & (t32 < theta_stop)
+    window_ls = elig & ~passed & (
+        t32 * a32 <= torch.addcmul(torch.full_like(a32, rel), a32, theta_stop))
+    return torch.where(window_ls, a32, -_INF)
+
+
+def flip_set(elig, both_fin, theta_true, theta) -> torch.Tensor:
+    """The columns whose ratio falls strictly below `theta`: dual
+    infeasible after a step of theta unless they jump to the opposite
+    (finite) bound (ClpSimplexDual flipBounds :6345)."""
+    return elig & both_fin & (theta_true < theta - 1e-12)
+
+
+def column_update(dj, vstat, alpha, theta_d, idx, q, p_leave, flip, at_lo, sigma):
+    """The pivot's dj and status updates over a block of columns: the
+    bound flips first, then the leaving and the entering variable."""
+    # addcmul: ONE rounding for x - s*v. XLA contracts a multiply feeding an
+    # add into an FMA, so the JAX package's recurrences (dj, DSE weights,
+    # x_B, binv) round that way; so must the port's, or the DSE weights drift
+    # apart through their cancellations within a few hundred pivots
+    dj_new = torch.addcmul(dj, alpha, theta_d, value=-1.0)
+    dj_new = torch.where(idx == q, 0.0, dj_new)
+    dj_new = torch.where(idx == p_leave, -theta_d, dj_new)
+    v = torch.where(flip, torch.where(at_lo, AT_UPPER, AT_LOWER), vstat)
+    v = torch.where(idx == p_leave, torch.where(sigma > 0, AT_UPPER, AT_LOWER), v)
+    return dj_new, torch.where(idx == q, BASIC, v).to(vstat.dtype)
+
+
+def dse_weights(weights, abar, abar_r, tau, w_r, r, im) -> torch.Tensor:
+    """The dual steepest-edge weight update (Forrest-Goldfarb)."""
+    wr = torch.clamp_min(w_r, 1e-50)
+    ratio = abar / abar_r
+    w_new = torch.addcmul(
+        torch.addcmul(weights, 2.0 * ratio, tau.to(weights.dtype), value=-1.0),
+        ratio * ratio, wr)
+    w_new = torch.clamp_min(w_new, 1e-8)
+    return torch.where(im == r, torch.clamp_min(wr / (abar_r * abar_r), 1e-8), w_new)
+
+
+def binv_update(binv, abar, rho, inv_piv, s_piv, do_pivot, r, im) -> torch.Tensor:
+    """The product-form update of B^-1 in its own dtype. The pivot gate is
+    folded into `factor` (s_piv = 0 on a gated pivot): a gated no-op
+    subtracts an exact zero outer product, binv - 0*row == binv."""
+    bd = binv.dtype
+    factor = abar * s_piv
+    factor = torch.where(im == r, torch.where(do_pivot, 1.0 - inv_piv, 0.0), factor)
+    return torch.addcmul(binv, factor.to(bd)[:, None], rho.to(bd)[None, :], value=-1.0)
 
 
 def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
@@ -564,19 +719,11 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     below = lb - state.xb
     above = state.xb - ub
     infeas = torch.clamp_min(torch.maximum(below, above), 0.0)
-    cand = infeas > ptol
 
-    # --- row choice: steepest edge (ClpDualRowSteepest) or Dantzig ---
-    if opts.dual_pivot == "dantzig":
-        score = torch.where(cand, infeas, -_INF)
-    else:
-        score = torch.where(
-            cand, infeas * infeas / torch.clamp_min(state.weights, 1e-50), -_INF)
+    # --- row choice: steepest edge, Dantzig or Positive Edge ---
+    score = row_scores(infeas, state.weights, opts)
     if opts.dual_pivot == "pe":
-        # Positive Edge: a random combination z of the dual-degenerate
-        # nonbasic columns FTRANs to ~0 in the compatible rows, where the
-        # ratio test is unlikely to return a zero-dj entering column (a
-        # degenerate dual step). One extra matvec pair per pivot.
+        # one extra matvec pair per pivot
         deg = (state.vstat != BASIC) & (state.dj.abs() <= dtol) & (lp.l != lp.u)
         z = torch.where(deg, rademacher(20210, state.iterations, nt, dt), 0.0)
         if pm1 is not None:
@@ -588,25 +735,13 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         else:
             gz = _mv(G, z)
         v = _mv(state.binv, gz.to(state.binv.dtype)).to(dt)
-        nrm = torch.sqrt(torch.clamp_min(torch.sum(z * z), 1.0))
-        compat = v.abs() <= 1e-8 * nrm
-        score_c = torch.where(compat, score, -_INF)
-        bests = torch.stack([score, score_c]).amax(dim=1)
-        score = torch.where(bests[1] >= opts.pe_psi * bests[0], score_c, score)
+        score = pe_scores(score, v, torch.sum(z * z), opts)
     if "rowchoice" in opts.ablate:  # timing-only: skip the DSE argmax
         r = torch.remainder(state.iterations.to(torch.int64), m)
     else:
         r = torch.argmax(score)
-    # ONE gather for every row-r scalar this pivot needs; r stays on the
-    # device (x[r] with a tensor index would sync the host every pivot)
-    row_stack = torch.stack([above, below, infeas, state.weights,
-                             state.xb, lb, ub])
-    above_r, below_r, infeas_r, w_r, xb_r, lb_r, ub_r = (
-        row_stack.index_select(1, r.reshape(1))[:, 0].unbind(0))
-    sigma = torch.where(above_r > below_r, one, -one)  # +1: leaves at upper
-    # argmax r maximizes score, which is -inf only where ~cand: the
-    # gathered row decides any_infeas without a second m-reduction
-    any_infeas = infeas_r > ptol
+    infeas_r, w_r, xb_r, lb_r, ub_r, sigma, any_infeas = row_scalars(
+        r, above, below, infeas, state.weights, state.xb, lb, ub, one, ptol)
 
     # --- BTRAN row + PRICE (+ fused Harris pass 1 in K1) ---
     # index_select copies: rho is never a view of binv, so the rank-1
@@ -619,12 +754,9 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     sgn = torch.where(at_lo, one, -one)
     rel = opts.harris_tolerance_frac * dtol
 
+    relaxed = None  # K1's or K3's relaxed ratios, where a kernel priced
     if "price" in opts.ablate:  # timing-only: alias instead of the m*nt pass
         alpha = state.dj.to(dt)
-        a = sigma * alpha
-        elig = ((at_lo & (a > pt)) | (at_up & (a < -pt))) & ~fixed
-        safe_a0 = torch.where(elig, a, 1.0)
-        theta_relaxed = torch.where(elig, (state.dj + sgn * rel) / safe_a0, _INF)
     elif opts.use_pallas_price and blk is not None:
         # fused BLOCK PRICE + Harris pass-1 (K3): reads the window-compacted
         # (nb, H, CB) tiles instead of the full (m, nt) G; the kernel takes
@@ -635,45 +767,29 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
             _pad(rho, m8_b - m), starts_b, W_b, state.dj, cand_dir, sgn,
             sigma, rel, pt)
         alpha = al_b[:nt].to(dt)
-        a = sigma * alpha
-        elig = ((at_lo & (a > pt)) | (at_up & (a < -pt))) & ~fixed
-        theta_relaxed = torch.where(elig, th_b[:nt].to(dt), _INF)
+        relaxed = th_b[:nt]
     elif opts.use_pallas_price and ell is None:
         cand_dir = (at_lo | at_up) & ~fixed
-        alpha, theta_relaxed = price_and_ratios(
+        alpha, relaxed = price_and_ratios(
             rho, G if G32 is None else G32, state.dj, cand_dir, sgn,
             sigma, rel, pt)
         alpha = alpha.to(dt)
-        a = sigma * alpha
-        elig = ((at_lo & (a > pt)) | (at_up & (a < -pt))) & ~fixed
-        theta_relaxed = torch.where(elig, theta_relaxed.to(dt), _INF)
+    elif pm1 is not None:
+        alpha = _pm1_price(rho, pm1).to(dt)  # gathers only
+    elif ell is not None:
+        # sparse PRICE: memory traffic O(nnz) instead of O(m*nt)
+        alpha = _ell_price(rho, ell).to(dt)
+    elif blk is not None:
+        # block-banded PRICE: one batched (nb,H)x(nb,H,CB) product
+        alpha = _blk_price(rho, blk, dt, nt)
     else:
-        if pm1 is not None:
-            alpha = _pm1_price(rho, pm1).to(dt)  # gathers only
-        elif ell is not None:
-            # sparse PRICE: memory traffic O(nnz) instead of O(m*nt)
-            alpha = _ell_price(rho, ell).to(dt)
-        elif blk is not None:
-            # block-banded PRICE: one batched (nb,H)x(nb,H,CB) product
-            alpha = _blk_price(rho, blk, dt, nt)
-        elif G32 is not None and mixed:
-            alpha = (rho @ G32).to(dt)
-        else:
-            alpha = rho.to(dt) @ G  # tableau row r, full precision
-        a = sigma * alpha
-        elig = ((at_lo & (a > pt)) | (at_up & (a < -pt))) & ~fixed
-        safe_a0 = torch.where(elig, a, 1.0)
-        theta_relaxed = torch.where(elig, (state.dj + sgn * rel) / safe_a0, _INF)
+        alpha = dense_price(rho, G, G32, mixed)
 
     # --- Harris two-pass dual ratio test (dualColumn0 equivalent) ---
-    safe_a = torch.where(elig, a, 1.0)
-    theta_true = torch.where(elig, state.dj / safe_a, _INF)
-    # the relaxed minimum is clamped by the true minimum because under f32
-    # pricing it can undershoot and empty the window (exact-mode no-op)
-    mins2 = torch.stack([theta_relaxed, theta_true]).amin(dim=1)
+    a, elig, theta_true, mins2 = ratio_columns(alpha, sigma, state.dj, at_lo, at_up,
+                                               fixed, sgn, rel, pt, relaxed)
     theta_max = torch.maximum(mins2[0], mins2[1])
-    in_window = elig & (theta_true <= theta_max)
-    pivot_mag = torch.where(in_window, a.abs(), -_INF)
+    pivot_mag = window_mags(a, elig, theta_true, theta_max)
     # theta_true is +inf exactly where ~elig, so the min over it decides
     # any_elig without another nt-reduction
     any_elig = torch.isfinite(mins2[1])
@@ -689,33 +805,20 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         # depends on it — the pivot element itself is still verified. A
         # slightly conservative threshold is always valid: passing fewer
         # breakpoints is still a correct (shorter) long step.
-        width32 = pre["width32"]
-        boxed = pre["boxed"]
-        a32 = a.abs().to(f32)
-        t32 = torch.where(elig, theta_true, _INF).to(f32)
-        gain = torch.where(elig & boxed, a32 * width32, _INF)
+        a32, t32, gain = breakpoints(a, elig, theta_true, pre)
         # only the K smallest breakpoints can be walked in one pivot;
         # truncating at K is a valid (shorter) long step
         K = min(opts.bfrt_topk, nt)
         idxK = _smallest_k(t32, K)
         tK = t32.index_select(0, idxK)
-        remain = infeas_r.to(f32) - torch.cumsum(
-            torch.where(elig, gain, 0.0).index_select(0, idxK), dim=0)
+        remain = infeas_r.to(f32) - torch.cumsum(gain.index_select(0, idxK), dim=0)
         canpass = (remain > 0.0) & torch.isfinite(tK)
         k_star = torch.cumprod(canpass.to(torch.int32), dim=0).sum()
         theta_stop = _at(tK, torch.clamp_max(k_star, K - 1))
-        # threshold semantics (strict <) instead of ranks: breakpoints tied
-        # with theta_stop stay unpassed (still eligible)
-        passed = elig & boxed & (t32 < theta_stop)
-        # Harris window around the stop, multiplied through by |a| to
-        # avoid the divide: theta <= stop + rel/|a|  <=>
-        # theta*|a| <= stop*|a| + rel
-        window_ls = elig & ~passed & (
-            t32 * a32 <= torch.addcmul(torch.full_like(a32, rel), a32, theta_stop))
         # degenerate guard: if the long step passes every breakpoint
         # (slope never exhausted — a dual ray through flips alone), fall
         # back to the short-step Harris window above
-        pivot_mag_ls = torch.where(window_ls, a32, -_INF)
+        pivot_mag_ls = long_step_mags(a32, t32, elig, pre["boxed"], theta_stop, rel)
         qq = torch.argmax(torch.stack([pivot_mag.to(f32), pivot_mag_ls]), dim=1)
         q, q_ls = qq[0], qq[1]
         # slope-validity check on the candidate over the SAME predicate the
@@ -723,8 +826,8 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         # exactly that set stays below the leaving row's infeasibility
         use_ls = _at(pivot_mag_ls, q_ls) > -_INF
         tq_ls = _at(theta_true, q_ls)
-        would_flip = elig & pre["both_fin"] & (theta_true < tq_ls - 1e-12)
-        gain_flip = torch.where(would_flip, a32 * width32, 0.0).sum()
+        would_flip = flip_set(elig, pre["both_fin"], theta_true, tq_ls)
+        gain_flip = torch.where(would_flip, a32 * pre["width32"], 0.0).sum()
         use_ls = use_ls & (gain_flip < infeas_r.to(f32))
         q = torch.where(use_ls, q_ls, q)
 
@@ -739,11 +842,10 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
                              state.vstat.to(dt), alpha.to(dt)])
     theta_q, dj_q, vlo_q, vup_q, vstat_q_f, alpha_rq = (
         col_stack.index_select(1, q.reshape(1))[:, 0].unbind(0))
-    both_fin = pre["both_fin"]
     if "flip" in opts.ablate:  # timing-only: no flips
         flip = torch.zeros_like(elig)
     else:
-        flip = elig & both_fin & (theta_true < theta_q - 1e-12) & (idx != q)
+        flip = flip_set(elig, pre["both_fin"], theta_true, theta_q) & (idx != q)
     width = pre["width"]
     flip_delta = torch.where(flip, torch.where(at_lo, width, -width), 0.0)
 
@@ -844,58 +946,27 @@ def dual_iteration(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     # would poison the vectors with NaN where a select stays exact.
     inv_piv = 1.0 / abar_r
     s_piv = torch.where(do_pivot, inv_piv, 0.0)
-    # addcmul: ONE rounding for x - s*v. XLA contracts a multiply feeding an
-    # add into an FMA, so the JAX package's recurrences (dj, DSE weights,
-    # x_B, binv) round that way; so must the port's, or the DSE weights drift
-    # apart through their cancellations within a few hundred pivots
     book = "book" not in opts.ablate  # timing-only: skip point updates
     if book:
-        dj_new = torch.addcmul(state.dj, alpha, theta_d, value=-1.0)
-        dj_new = torch.where(idx == q, 0.0, dj_new)
-        dj_new = torch.where(idx == p_leave, -theta_d, dj_new)
-
-        # --- DSE weight update (Forrest-Goldfarb) ---
-        wr = torch.clamp_min(w_r, 1e-50)
-        ratio = abar / abar_r
-        w_new = torch.addcmul(
-            torch.addcmul(state.weights, 2.0 * ratio, tau.to(state.weights.dtype),
-                          value=-1.0),
-            ratio * ratio, wr)
-        w_new = torch.clamp_min(w_new, 1e-8)
-        w_new = torch.where(im == r, torch.clamp_min(wr / (abar_r * abar_r), 1e-8),
-                            w_new)
+        dj_new, vstat_new = column_update(state.dj, state.vstat, alpha, theta_d, idx, q,
+                                          p_leave, flip, at_lo, sigma)
+        w_new = dse_weights(state.weights, abar, abar_r, tau, w_r, r, im)
+        # --- basic solution update ---
+        xb_new = torch.where(
+            im == r, xq_new, torch.addcmul(state.xb, abar, delta_q, value=-1.0) - flow)
+        basis_new = torch.where(im == r, q, state.basis)
     else:
-        dj_new = state.dj
-        w_new = state.weights
+        dj_new, vstat_new, w_new = state.dj, state.vstat, state.weights
+        xb_new, basis_new = state.xb, state.basis
 
     # --- basis inverse product-form update (binv's own dtype); K2 already
     # wrote it (gated) in the same pass as the FTRAN
     if "update" in opts.ablate:  # timing-only: skip the rank-1 update
         binv_new = state.binv
     elif binv_fused is None:
-        # pivot-gated factor (s_piv above): a gated no-op subtracts an
-        # exact zero outer product — binv - 0*row == binv
-        factor = abar * s_piv
-        factor = torch.where(
-            im == r, torch.where(do_pivot, 1.0 - inv_piv, 0.0), factor)
-        binv_new = torch.addcmul(state.binv, factor.to(bd)[:, None],
-                                 rho.to(bd)[None, :], value=-1.0)
+        binv_new = binv_update(state.binv, abar, rho, inv_piv, s_piv, do_pivot, r, im)
     else:
         binv_new = binv_fused
-
-    # --- basic solution update ---
-    if book:
-        xb_new = torch.where(
-            im == r, xq_new, torch.addcmul(state.xb, abar, delta_q, value=-1.0) - flow)
-        basis_new = torch.where(im == r, q, state.basis)
-        # apply bound flips first, then the pivot's status changes
-        vstat_flipped = torch.where(
-            flip, torch.where(at_lo, AT_UPPER, AT_LOWER), state.vstat)
-        vstat_new = torch.where(
-            idx == p_leave, torch.where(sigma > 0, AT_UPPER, AT_LOWER), vstat_flipped)
-        vstat_new = torch.where(idx == q, BASIC, vstat_new).to(state.vstat.dtype)
-    else:
-        xb_new, basis_new, vstat_new = state.xb, state.basis, state.vstat
 
     # --- dispatch on special cases (do_pivot decided above, pre-update) ---
     status = torch.where(
@@ -1225,7 +1296,7 @@ def _pivot_chunk(lp, st: SimplexState, opts: SimplexOptions, iteration_fn):
 
 
 def _run_loop(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
-              iteration_fn, verify_fn, max_chunks: int = 0):
+              iteration_fn, verify_fn, max_chunks: int = 0, recompute_fn=None):
     """outer refactorize loop + inner pivot loop (gutsOfDual structure).
 
     An OPTIMAL claim from the inner loop is only accepted after a fresh
@@ -1236,7 +1307,9 @@ def _run_loop(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
     max_chunks > 0 bounds the outer loop: the solve returns (state,
     verified) after that many refactor-chunks even if unfinished (status
     CONTINUE, claims unverified), as the JAX package's bounded mode does.
+    `recompute_fn` replaces `recompute` (the column-sharded engine's).
     """
+    recompute_ = recompute if recompute_fn is None else recompute_fn
     st = state
     stalls = 0
     verified = False
@@ -1251,7 +1324,7 @@ def _run_loop(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         rounds += 1
         iters_before = iters
         claimed_terminal = status in (PRIMAL_INFEASIBLE, DUAL_INFEASIBLE)
-        st = recompute(lp, st, opts.dual_bound)
+        st = recompute_(lp, st, opts.dual_bound)
         fresh = int(st.status)
         verified = (status == OPTIMAL and bool(verify_fn(lp, st, opts))
                     and fresh != NUMERICAL)
@@ -1279,7 +1352,7 @@ def _run_loop(lp: StandardLP, state: SimplexState, opts: SimplexOptions,
         st = dataclasses.replace(st, status=_code(NUMERICAL, st.status))
     # final consistency pass (already on fresh factors if the claim verified)
     if not verified:
-        st = recompute(lp, st, opts.dual_bound)
+        st = recompute_(lp, st, opts.dual_bound)
     status, iters, _ = _flags(st)
     if status == CONTINUE and iters >= opts.max_iterations:
         st = dataclasses.replace(st, status=_code(ITER_LIMIT, st.status))

@@ -14,9 +14,9 @@ its simplex polish), NETWORK, GUB, DECOMPOSE (Benders over the batched
 IPM) and the dualize of tall LPs, and AUTOMATIC wherever it lands; a
 quadratic objective on the barrier or on the reduced-gradient QP simplex
 (simplex/qp.py), and piecewise-linear costs on the in-engine primal
-(piecewise.py). `solve_batch` solves many same-shape models as one batch.
-The routes it still lacks raise NotImplementedError naming their
-ROADMAP.md queue 1 item: `shape_bucket` and a device mesh (multi-device).
+(piecewise.py). `solve_batch` solves many same-shape models as one batch,
+over a device mesh when given one. `shape_bucket` pads the simplex's and
+the barrier's forms to bucket multiples and strips the answer back.
 """
 
 from __future__ import annotations
@@ -33,10 +33,6 @@ from .device import on_accelerator, resolve_device
 from .forms import expand_ipm_solution, to_ipm_form
 from .model import Model, Solution
 from .options import SolveOptions
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1: {item})")
 
 
 def _empty_solution(model: Model) -> Solution:
@@ -307,19 +303,70 @@ def _rcm_band_plan(G: np.ndarray):
     return perm, nb
 
 
-def _barrier_plan(G: np.ndarray, opts, device: torch.device):
+def _pad_ipm_lp(lp, bucket: int):
+    """Pad the IPM standard form (m, nt) up to shape-bucket multiples, the
+    barrier's counterpart of the simplex driver's _bucketed_solve (in the
+    JAX package: one compiled barrier program for nearby shapes; here: the
+    same answer from the padded form).
+
+    to_ipm_form substitutes fixed variables out, so the padding must be
+    strictly interior-feasible rather than fixed (a [0, 0] pad column
+    would be stripped and a bare zero row would make the normal
+    equations lean on regularization):
+      - each pad ROW i carries a singleton +1 entry on its own pad
+        column with [-1, 1] bounds: the row reads x_pad = 0 (strictly
+        interior) and contributes a strictly positive diagonal to GDG';
+      - remaining pad COLUMNS are all-zero with cost 0 and [-1, 1]
+        bounds: reduced cost identically 0, no coupling to the LP.
+    Returns (padded_lp, (m, nt)) or (lp, None) when already aligned. The
+    form is on the host.
+    """
+    from .forms import StandardLP
+
+    G = lp.G
+    m, nt = G.shape
+    m2 = -(-m // bucket) * bucket
+    k = m2 - m
+    nt2 = -(-(nt + k) // bucket) * bucket
+    p = nt2 - nt
+    if k == 0 and p == 0:
+        return lp, None
+    G2 = G.new_zeros((m2, nt2))
+    G2[:m, :nt] = G
+    if k:
+        G2[m + torch.arange(k), nt + torch.arange(k)] = 1.0
+    pad1 = G.new_ones(p)
+    Q2 = None
+    if lp.Q is not None:
+        Q2 = G.new_zeros((nt2, nt2))
+        Q2[:nt, :nt] = lp.Q
+    lp2 = StandardLP(
+        G=G2,
+        b=torch.cat([lp.b, lp.b.new_zeros(k)]),
+        c=torch.cat([lp.c, lp.c.new_zeros(p)]),
+        l=torch.cat([lp.l, -pad1]),
+        u=torch.cat([lp.u, pad1]),
+        Q=Q2,
+    )
+    return lp2, (m, nt)
+
+
+def _barrier_plan(G: np.ndarray, opts, device: torch.device, sparse: bool = True):
     """The Newton branch for this IPM form: RCM-banded when its band is
     narrow, else the sparse multifrontal normal equations when the
     minimum-degree fill beats the dense O(m^3) (on the card the device
     numeric in f32, on the CPU the host numeric), else dense. Returns
-    (row permutation or None, opts)."""
+    (row permutation or None, opts). `sparse=False` (a bucketed form)
+    keeps to the banded and dense branches, as the JAX package does: its
+    bucket shares one compiled program, which a per-pattern multifrontal
+    plan would defeat, and the port takes the same route."""
     import scipy.sparse as sp
 
     perm, nb = _rcm_band_plan(G)
     if perm is not None:
         return perm, dataclasses.replace(opts, band_nb=nb)
     m = G.shape[0]
-    if m >= 512 and np.count_nonzero(G) < 0.02 * G.size:
+    if sparse and m >= 512 and np.count_nonzero(G) < 0.02 * G.size:
         G_csr = sp.csr_matrix(G)
         reg = float(opts.reg_dual) + 1e-12
         if device.type == "cuda":
@@ -353,11 +400,13 @@ def _solve_barrier(model: Model, options: SolveOptions) -> Solution:
     Newton branch on the host, run the IPM, map its point back."""
     from .interior.mehrotra import IPMOptions, ipm_solve
 
-    if int(getattr(options, "shape_bucket", 0) or 0) > 0:
-        raise _not_ported("shape_bucket > 0 (the barrier's _pad_ipm_lp)", "shape_bucket")
     device = resolve_device(options.device)
-    # the form is built and planned on the host, then moved once
+    # the form is built, padded and planned on the host, then moved once
     lp, info = to_ipm_form(model, device="cpu")
+    pad_dims = None
+    bucket = int(getattr(options, "shape_bucket", 0) or 0)
+    if bucket > 0:
+        lp, pad_dims = _pad_ipm_lp(lp, bucket)
     boost = 100.0 if options.barrier_regularize else 1.0
     mixed32 = getattr(options, "barrier_mixed32", "auto")
     if mixed32 == "auto":
@@ -379,7 +428,7 @@ def _solve_barrier(model: Model, options: SolveOptions) -> Solution:
         if np.count_nonzero(Qh - np.diag(np.diagonal(Qh))) == 0:
             opts = dataclasses.replace(opts, q_diag=True)
     if lp.Q is None or opts.q_diag:
-        perm, opts = _barrier_plan(lp.G.numpy(), opts, device)
+        perm, opts = _barrier_plan(lp.G.numpy(), opts, device, sparse=bucket == 0)
     if perm is not None:
         # permute ROWS so the normal matrix is banded; x and columns are
         # untouched, so only y needs unpermuting afterwards
@@ -422,6 +471,10 @@ def _solve_barrier(model: Model, options: SolveOptions) -> Solution:
         y_full = torch.empty_like(res.y)
         y_full[perm.to(res.y.device)] = res.y
         res = dataclasses.replace(res, y=y_full)
+    if pad_dims is not None:
+        m0, nt0 = pad_dims
+        res = dataclasses.replace(res, x=res.x[:nt0], y=res.y[:m0], z=res.z[:nt0],
+                                  w=res.w[:nt0])
     seconds = time.perf_counter() - t0
     sol = _ipm_to_solution(model, res, info, options)
     # the Newton branch taken and the IPM's own count and wall (the
@@ -934,8 +987,8 @@ def solve_batch(
     """Solve many same-shape LPs (or QPs) as one batch.
 
     All models must share (m, n); they are stacked on a leading scenario
-    axis and run through the lane-wise batched IPM (parallel/batch.py). A
-    device mesh is not ported (ROADMAP.md queue 1: multi-device).
+    axis and run through the lane-wise batched IPM (parallel/batch.py),
+    with that axis split over `mesh` (axis options.mesh_axis) when given.
     """
     from .parallel.batch import solve_batch_ipm
 

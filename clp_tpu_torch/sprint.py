@@ -9,10 +9,11 @@ duals, add attractive columns, drop unattractive nonbasic ones, repeat
 For many-more-columns-than-rows LPs this keeps the dense working set small;
 the full pricing step is one sparse matvec on the host.
 
-Port of the JAX package's sprint.py, one device: each sub-LP runs the
-port's `simplex_solve` on the caller's `options.device`. The column-sharded
-repricing over a device mesh (a `mesh` argument or `options.devices`) is
-not ported and raises.
+Port of the JAX package's sprint.py: each sub-LP runs the port's
+`simplex_solve` on the caller's `options.device`. A `mesh` argument, or an
+`options.devices` that is a port Mesh with a "block" axis, turns on the
+column-sharded repricing over that mesh (parallel/block.py); a plain list
+of devices is ignored there, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,10 +38,17 @@ def sprint_solve(model: Model, options: SolveOptions, max_passes: int = 100,
     A = model.matrix.tocsc()
     c = model.objective * sense
 
-    if mesh is not None or options.devices is not None:
-        raise NotImplementedError(
-            "SPRINT's column-sharded repricing over a device mesh is not ported "
-            "yet (ROADMAP.md queue 1: multi-device)")
+    # column-sharded device repricing over the `block` mesh axis
+    sharded_cols = None
+    if mesh is None and options.devices is not None:
+        from .parallel.mesh import Mesh
+
+        if isinstance(options.devices, Mesh) and "block" in options.devices.axis_names:
+            mesh = options.devices
+    if mesh is not None:
+        from .parallel.block import BlockShardedColumns
+
+        sharded_cols = BlockShardedColumns(A, c, mesh)
 
     target = min(n, max(3 * m, 500))  # working-set size (~3x rows, ref heuristic)
     order = np.argsort(np.abs(c))
@@ -110,7 +118,10 @@ def sprint_solve(model: Model, options: SolveOptions, max_passes: int = 100,
 
         # full pricing with sub-LP duals
         y = np.asarray(sol.duals) * sense
-        dj = c - A.T @ y
+        if sharded_cols is not None:
+            dj, _, _ = sharded_cols.reprice(y)
+        else:
+            dj = c - A.T @ y
         lo_attr = (~active) & (dj < -model.dual_tolerance)
         up_attr = (
             (~active)

@@ -19,6 +19,7 @@ from clp_tpu_torch.forms import to_standard_form
 from clp_tpu_torch.ops import linalg as tl
 from clp_tpu_torch.parallel import batch as tb
 from clp_tpu_torch.simplex import engine as te
+from clp_tpu_torch.utils.lockstep import run
 from tests.test_batch import _perturbed_models, _portfolio_qp
 from tests.test_torch_qp import port_model
 from tests.worker_threads import set_worker_threads
@@ -133,7 +134,7 @@ def test_batched_lane_is_its_single_solve_bit_for_bit(kw):
     opts = te.SimplexOptions(**kw)
     lp_b, _ = tb.stack_models_simplex(models, "cpu")
     E = tb._Lanes(tb._lpd(lp_b), opts)
-    S = tb._compacting_dual_loop(E, E.initial_state())
+    S = run(tb._compacting_prog(E, E.initial_state()))
     iters = set()
     for i, mdl in enumerate(models):
         lp, _ = to_standard_form(mdl, device="cpu")
@@ -157,7 +158,7 @@ def test_batched_rounds_match_jax(rounds):
     jst, jver = jb._brounds(jlp, jb._bprep(jlp, jb._binit(jlp, jo), jo), jo, rounds)
     tlp, _ = tb.stack_models_simplex([port_model(m) for m in models], "cpu")
     E = tb._Lanes(tb._lpd(tlp), te.SimplexOptions(refactor_frequency=12))
-    S, ver = tb._brounds(E, tb._bprep(E, E.initial_state()), rounds)
+    S, ver = run(tb._brounds_prog(E, tb._bprep(E, E.initial_state()), rounds))
     assert np.array_equal(np.asarray(jver), ver.numpy())
     assert np.array_equal(np.asarray(jst.status), S["status"].numpy())
     assert np.array_equal(np.asarray(jst.iterations), S["iterations"].numpy())
@@ -299,7 +300,7 @@ def test_lanewise_cholesky_matches_single():
     M = A @ A.transpose(0, 2, 1)
     M[1] = np.outer(A[1, 0], A[1, 0]) - 1e-10 * np.eye(6)  # slightly indefinite
     Mt = torch.as_tensor(M)
-    L, delta = tl.chol_factor_reg_lanes(Mt)
+    L, delta = run(tl.chol_factor_reg_lanes_prog(Mt))
     for i in range(3):
         L1, d1 = tl.chol_factor_reg(Mt[i])
         torch.testing.assert_close(L[i], L1, rtol=1e-12, atol=1e-12)
@@ -316,7 +317,7 @@ def test_lanewise_block_tridiag_cholesky_matches_single():
     A[1, 2] = -1e-9 * np.eye(nb)  # lane 1 fails unshifted, passes once shifted
     E[1, 1:] = 0.0
     At, Et = torch.as_tensor(A), torch.as_tensor(E)
-    L, C, delta = tl.block_tridiag_cholesky_lanes(At, Et)
+    L, C, delta = run(tl.block_tridiag_cholesky_lanes_prog(At, Et))
     for i in range(2):
         L1, C1, d1 = tl.block_tridiag_cholesky(At[i], Et[i])
         torch.testing.assert_close(L[i], L1, rtol=1e-12, atol=1e-12)
@@ -358,15 +359,27 @@ def test_batch_qp_simplex_refuses_lps():
 
 
 # --------------------------------------------------------------------------
-# the mesh cases of tests/test_batch.py raise in the port
+# the mesh cases of tests/test_batch.py (more in tests/test_torch_mesh.py)
 # --------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("entry", ["solve_batch", "dual", "qp"])
 def test_mesh_raises_multi_device(entry):
-    models = [port_model(m) for m in _perturbed_models(count=2)]
-    fn = {"solve_batch": clp_tpu_torch.solve.solve_batch,
-          "dual": tb.solve_batch_dual_simplex,
-          "qp": tb.solve_batch_qp_simplex}[entry]
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        fn(models, _cpu(), mesh=object())
+    """A 2-entry CPU mesh (it raised until the last slice of the port): the
+    lanes are the unsharded batch's, and the JAX package's over 2 XLA CPU
+    devices."""
+    from clp_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from clp_tpu_torch.parallel.mesh import make_mesh
+
+    if entry == "qp":
+        jmodels = [_portfolio_qp(8, g, seed=2) for g in (1.0, 3.0)]
+    else:
+        jmodels = _perturbed_models(count=2)
+    tfn, jfn = {"solve_batch": (clp_tpu_torch.solve.solve_batch, clp_tpu.solve_batch),
+                "dual": (tb.solve_batch_dual_simplex, jb.solve_batch_dual_simplex),
+                "qp": (tb.solve_batch_qp_simplex, jb.solve_batch_qp_simplex)}[entry]
+    jsols = jfn([m.copy() for m in jmodels], mesh=jax_make_mesh(jax.devices()[:2]))
+    plain = tfn([port_model(m) for m in jmodels], _cpu())
+    sharded = tfn([port_model(m) for m in jmodels], _cpu(), mesh=make_mesh(["cpu", "cpu"]))
+    _same(sharded, jsols)
+    _same(sharded, plain)

@@ -602,6 +602,7 @@ def test_vmapped_dual_pivots_on_card_match_cpu(cuda_device):
     objective on both (the pivot paths may part where the two sum in other
     orders; on the H100 two of the eight did within 200 pivots)."""
     from clp_tpu_torch.parallel import batch as pb
+    from clp_tpu_torch.utils.lockstep import run as run_alone
     from clp_tpu_torch.simplex import engine
 
     opts = engine.SimplexOptions()
@@ -616,7 +617,7 @@ def test_vmapped_dual_pivots_on_card_match_cpu(cuda_device):
             S = pb.gate(run & (S["status"] == engine.CONTINUE), E.dual_step(S), S)
         for k, v in S.items():
             assert torch.equal(v[3], frozen[k]), k
-        S, _ = pb.lanes_run(S, E.recompute, E.verify_dual, E.dual_step, opts)
+        S, _ = run_alone(pb._lanes_prog(S, E.recompute, E.verify_dual, E.dual_step, opts))
         out[dev] = (S["status"].cpu(), E.objective(S).cpu())
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     assert (out["cpu"][0] == engine.OPTIMAL).all()
@@ -632,12 +633,13 @@ def test_batched_lanes_on_card_match_their_single_solves(cuda_device):
     in other orders.)"""
     from clp_tpu_torch.forms import to_standard_form
     from clp_tpu_torch.parallel import batch as pb
+    from clp_tpu_torch.utils.lockstep import run as run_alone
     from clp_tpu_torch.simplex import engine
 
     opts = engine.SimplexOptions()
     models = _lane_models()
     E = pb._Lanes(_batch_lanes(cuda_device), opts)
-    S = pb._compacting_dual_loop(E, E.initial_state())
+    S = run_alone(pb._compacting_prog(E, E.initial_state()))
     obj = E.objective(S).cpu()
     for i, mdl in enumerate(models):
         lp, _ = to_standard_form(mdl, device=cuda_device)
@@ -757,3 +759,53 @@ def test_c_api_client_on_card(cuda_device, tmp_path):
                        timeout=300)
     assert r.returncode == 0, (r.stdout, r.stderr[-2000:])
     assert "C API test OK" in r.stdout
+
+
+def test_bucketed_solve_on_card_matches_cpu(cuda_device):
+    """shape_bucket on the card: the padded dual simplex (K1 on every pivot
+    of its f32 engine) against the same bucketed solve on the CPU, both
+    stripped back to the model's sizes."""
+    from clp_tpu_torch import SolveOptions, check_kkt, initial_solve
+    from clp_tpu_torch.constants import ProblemStatus, SolveMethod
+    from clp_tpu_torch.utils.generators import random_lp
+
+    kw = dict(method=SolveMethod.DUAL_SIMPLEX, shape_bucket=128)
+    cpu = initial_solve(random_lp(500, 900, seed=4, density=0.05),
+                        SolveOptions(device="cpu", **kw))
+    model = random_lp(500, 900, seed=4, density=0.05)
+    n1 = price_and_ratios.launches
+    card = initial_solve(model, SolveOptions(device="cuda", **kw))
+    assert cpu.status == card.status == ProblemStatus.OPTIMAL
+    assert price_and_ratios.launches > n1  # 512 x 1536 after padding: K1 on
+    assert card.primal.shape == (900,) and card.duals.shape == (500,)
+    assert abs(card.objective_value - cpu.objective_value) <= 1e-9 * (
+        1 + abs(cpu.objective_value))
+    assert check_kkt(model, x=card.primal, y=card.duals, tol=1e-6).ok
+
+
+def test_colsharded_solve_on_card_matches_single_device(cuda_device):
+    """The column-sharded dual engine over ["cuda:0"] * 4 against the
+    single-device engine on the card, with the card's settings."""
+    from clp_tpu_torch.forms import to_standard_form
+    from clp_tpu_torch.parallel.colshard import dual_solve_colsharded, make_block_mesh
+    from clp_tpu_torch.simplex import engine
+    from clp_tpu_torch.utils.generators import random_lp
+
+    lp, _ = to_standard_form(random_lp(256, 448, seed=1, density=0.05), device="cuda")
+    opts = engine.SimplexOptions(inverse_dtype="float32", inner_unroll=8,
+                                 refactor_frequency=400, dual_ratio="bfrt")
+    st = engine.initial_state(lp, opts)
+    st = engine.make_dual_feasible(lp, engine.recompute(lp, st, opts.dual_bound), opts)
+    ref = engine.dual_solve(lp, st, opts)
+    stats = {}
+    out, slp, nt0 = dual_solve_colsharded(lp, opts, make_block_mesh(["cuda:0"] * 4),
+                                          stats=stats)
+    assert int(ref.status) == int(out.status) == engine.OPTIMAL
+    assert out.vstat.device.type == "cuda" and stats["pivots"] > 0
+
+    def objective(lp_, s):
+        xn = engine.nonbasic_values(lp_, s.vstat, opts.dual_bound)
+        return float(lp_.c.index_select(0, s.basis) @ s.xb + lp_.c @ xn)
+
+    a, b = objective(slp, out), objective(lp, ref)
+    assert abs(a - b) <= 1e-9 * (1 + abs(b))

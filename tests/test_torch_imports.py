@@ -168,7 +168,9 @@ SLICE_MODULES = ["clp_tpu_torch.simplex.qp", "clp_tpu_torch.dynamic",
                  "clp_tpu_torch.params", "clp_tpu_torch.cli", "clp_tpu_torch.__main__",
                  "clp_tpu_torch.netlib", "clp_tpu_torch.io.basis",
                  "clp_tpu_torch.io.lp_format", "clp_tpu_torch.io.nl",
-                 "clp_tpu_torch.io.native"]
+                 "clp_tpu_torch.io.native", "clp_tpu_torch.parallel.mesh",
+                 "clp_tpu_torch.parallel.block", "clp_tpu_torch.parallel.colshard",
+                 "clp_tpu_torch.parallel.dryrun", "clp_tpu_torch.utils.lockstep"]
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
@@ -178,46 +180,98 @@ def test_slice_modules_are_checked(name):
     assert path in _port_files()
 
 
-@pytest.mark.parametrize("kw, match", [
-    ({"shape_bucket": 64}, "shape_bucket"),
-    ({"method": "SPRINT", "devices": ["cpu", "cpu"]}, "multi-device"),
-    ({"method": "BARRIER_NO_CROSS", "shape_bucket": 64}, "shape_bucket"),
+@pytest.mark.parametrize("kw", [
+    {"shape_bucket": 64},
+    {"method": "SPRINT", "devices": ["cpu", "cpu"]},
+    {"method": "BARRIER_NO_CROSS", "shape_bucket": 64},
 ], ids=["shape_bucket", "sprint-devices", "qp-shape_bucket"])
-def test_unported_routes_raise(kw, match):
+def test_unported_routes_raise(kw):
+    """The routes that raised until the last slice of the port run and
+    match the JAX package's: shape buckets on the simplex and on the QP
+    barrier, and SPRINT given a plain list of devices (ignored by both
+    packages' SPRINT, which takes a Mesh with a "block" axis only)."""
     import scipy.sparse as sp
 
-    from clp_tpu_torch import SolveOptions, initial_solve
-    from clp_tpu_torch.constants import SolveMethod
-    from clp_tpu_torch.utils.generators import random_lp
+    import clp_tpu
+    from clp_tpu.utils.generators import random_lp as jax_random_lp
 
-    kw = dict(kw)
-    kw["method"] = SolveMethod[kw.get("method", "DUAL_SIMPLEX")]
-    model = random_lp(6, 9, seed=2)
-    if kw["method"] == SolveMethod.BARRIER_NO_CROSS:
-        model.load_quadratic_objective(sp.identity(model.num_cols, format="csc"))
-    with pytest.raises(NotImplementedError, match=match):
-        initial_solve(model, SolveOptions(device="cpu", **kw))
+    from clp_tpu_torch import Model, SolveOptions, initial_solve
+    from clp_tpu_torch.constants import SolveMethod
+
+    method = kw.get("method", "DUAL_SIMPLEX")
+    if method == "SPRINT":
+        mj = jax_random_lp(6, 40, seed=2)
+    else:
+        mj = jax_random_lp(6, 9, seed=2)
+    if method == "BARRIER_NO_CROSS":
+        mj.load_quadratic_objective(sp.identity(mj.num_cols, format="csc"))
+    mt = Model()
+    mt.load_problem(mj.matrix, mj.col_lower, mj.col_upper, mj.objective,
+                    mj.row_lower, mj.row_upper)
+    if mj.quadratic_objective is not None:
+        mt.load_quadratic_objective(mj.quadratic_objective)
+    jkw = dict(kw, method=clp_tpu.SolveMethod[method])
+    if "devices" in jkw:
+        import jax
+
+        jkw["devices"] = jax.devices()[:2]
+    js = clp_tpu.initial_solve(mj, clp_tpu.SolveOptions(**jkw))
+    ts = initial_solve(mt, SolveOptions(device="cpu", **dict(kw, method=SolveMethod[method])))
+    assert int(ts.status) == int(js.status) == 0
+    assert abs(ts.objective_value - js.objective_value) <= 1e-9 * (1 + abs(js.objective_value))
+    assert ts.iterations == js.iterations
+    assert ts.primal.shape == (mj.num_cols,)
 
 
 @pytest.mark.parametrize("entry", ["solve_batch", "batch_dual", "batch_qp", "racing"])
 def test_device_meshes_raise_multi_device(entry):
-    """A device mesh, or a race over several devices, is queue 1's
-    multi-device item."""
-    from clp_tpu_torch import SolveOptions
-    from clp_tpu_torch.parallel import batch, racing
-    from clp_tpu_torch.solve import solve_batch
-    from clp_tpu_torch.utils.generators import random_lp
+    """A device mesh, or a race over several devices, raised until the last
+    slice of the port; now each runs on a 2-entry CPU mesh and matches the
+    JAX package's run on 2 XLA CPU devices."""
+    import jax
+    import scipy.sparse as sp
 
-    models = [random_lp(6, 9, seed=2), random_lp(6, 9, seed=3)]
+    import clp_tpu
+    from clp_tpu.parallel import batch as jb
+    from clp_tpu.parallel import racing as jr
+    from clp_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from clp_tpu.utils.generators import random_lp as jax_random_lp
+
+    from clp_tpu_torch import Model, SolveOptions
+    from clp_tpu_torch.parallel import batch, racing
+    from clp_tpu_torch.parallel.mesh import make_mesh
+    from clp_tpu_torch.solve import solve_batch
+
+    jmodels = [jax_random_lp(6, 9, seed=2), jax_random_lp(6, 9, seed=3)]
+    if entry == "batch_qp":
+        for m in jmodels:
+            m.load_quadratic_objective(sp.identity(m.num_cols, format="csc"))
+    models = []
+    for mj in jmodels:
+        mt = Model()
+        mt.load_problem(mj.matrix, mj.col_lower, mj.col_upper, mj.objective,
+                        mj.row_lower, mj.row_upper)
+        if mj.quadratic_objective is not None:
+            mt.load_quadratic_objective(mj.quadratic_objective)
+        models.append(mt)
     opts = SolveOptions(device="cpu")
+    mesh, jmesh = make_mesh(["cpu", "cpu"]), jax_make_mesh(jax.devices()[:2])
     call = {
-        "solve_batch": lambda: solve_batch(models, opts, mesh=object()),
-        "batch_dual": lambda: batch.solve_batch_dual_simplex(models, opts, mesh=object()),
-        "batch_qp": lambda: batch.solve_batch_qp_simplex(models, opts, mesh=object()),
-        "racing": lambda: racing.racing_solve(models[0], devices=["cpu", "cpu"]),
+        "solve_batch": (lambda: solve_batch(models, opts, mesh=mesh),
+                        lambda: clp_tpu.solve_batch(jmodels, mesh=jmesh)),
+        "batch_dual": (lambda: batch.solve_batch_dual_simplex(models, opts, mesh=mesh),
+                       lambda: jb.solve_batch_dual_simplex(jmodels, mesh=jmesh)),
+        "batch_qp": (lambda: batch.solve_batch_qp_simplex(models, opts, mesh=mesh),
+                     lambda: jb.solve_batch_qp_simplex(jmodels, mesh=jmesh)),
+        "racing": (lambda: [racing.racing_solve(models[0], devices=["cpu", "cpu"])],
+                   lambda: [jr.racing_solve(jmodels[0], devices=jax.devices()[:2])]),
     }[entry]
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        call()
+    tsols, jsols = call[0](), call[1]()
+    # racing's winner may be the barrier without crossover in either package
+    rel = 1e-6 if entry == "racing" else 1e-9
+    for t, j in zip(tsols, jsols):
+        assert int(t.status) == int(j.status) == 0
+        assert abs(t.objective_value - j.objective_value) <= rel * (1 + abs(j.objective_value))
 
 
 def test_ablate_gates_raise():

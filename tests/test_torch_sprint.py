@@ -1,7 +1,7 @@
 """Port parity for sprint.py: the column working-set solve gives the JAX
 package's status and objective on the same wide LPs, directly and as
-AUTOMATIC's SPRINT route; its sub-solves run on the caller's device; a
-device mesh raises under its ROADMAP item."""
+AUTOMATIC's SPRINT route; its sub-solves run on the caller's device; its
+repricing over a "block" device mesh gives the JAX package's objective."""
 
 import pytest
 import torch
@@ -63,12 +63,25 @@ def test_sprint_sub_solves_run_on_the_callers_device(monkeypatch):
 
 @pytest.mark.parametrize("where", ["mesh", "devices"])
 def test_sprint_mesh_raises(where):
-    mt = _port_model(jgen.random_lp(6, 40, seed=2))
+    """SPRINT's repricing over a 2-entry "block" mesh, given as `mesh` or as
+    `options.devices` (it raised until the last slice of the port): the
+    JAX package's objective over 2 XLA CPU devices."""
+    import jax
+    from clp_tpu.parallel.block import make_block_mesh as jax_block_mesh
+    from clp_tpu_torch.parallel.block import make_block_mesh
+
+    mj = jgen.random_lp(6, 40, seed=2)
+    mt = _port_model(mj)
     opts = clp_tpu_torch.SolveOptions(device="cpu")
-    kw = {}
+    jopts = clp_tpu.SolveOptions()
+    kw, jkw = {}, {}
     if where == "mesh":
-        kw["mesh"] = object()
+        kw["mesh"] = make_block_mesh(["cpu", "cpu"])
+        jkw["mesh"] = jax_block_mesh(jax.devices()[:2])
     else:
-        opts.devices = ["cpu", "cpu"]
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        sprint.sprint_solve(mt, opts, **kw)
+        opts.devices = make_block_mesh(["cpu", "cpu"])
+        jopts.devices = jax_block_mesh(jax.devices()[:2])
+    sj = jax_sprint_solve(mj, jopts, **jkw)
+    st = sprint.sprint_solve(mt, opts, **kw)
+    assert int(st.status) == int(sj.status) == int(clp_tpu.ProblemStatus.OPTIMAL)
+    assert abs(st.objective_value - sj.objective_value) <= 1e-9 * (1 + abs(sj.objective_value))
