@@ -4,10 +4,11 @@
 
 Builds the port's CUDA kernels from clp_tpu_torch/csrc (nvcc, sm_90a, one
 process per source, all started together), holds each kernel against its
-plain PyTorch version at the main path's shapes and times both (K1 and K3
-also for bit-identical results over 10 launches, K3 beside the device-side
-floor of an empty launch; K2 also above its one-pass limit, at m = 14,465
-and 16,384, on its two-pass path), then solves
+plain PyTorch version at the main path's shapes and times both (each
+also for bit-identical results over 10 launches, K2 and K3 beside the
+device-side floor of an empty launch; K2 also at the wide m = 14,465
+(odd: rows not 16-byte aligned), 16,384 and 24,576, one launch each),
+then solves
 the 2048 x 4608 staircase LP end to end through
 `initial_solve(method=DUAL_SIMPLEX, device="cuda")` three times — with K1,
 with K1 + K2, and on the block-banded route `price_mode="block"` with K3 —
@@ -60,8 +61,12 @@ LP, SPRINT over a "block" mesh, bench.py's batches, the B = 64 IPM batch
 and the risk sweep over a 4-entry "scenario" mesh (lane by lane against
 the unsharded batch), racing over 3 devices and the port's multi-device
 dry run; every mesh entry is the one card, so no copy between devices is
-timed. It prints the wall of every phase before the kernels line.
-Every phase that fails exits non-zero. The profiles run apart, each in a fresh process
+timed. The kernels and the main paths run alone; the six phases after
+them run in four child processes started together (`PHASE_GROUPS`,
+`chip_smoke.py --phases`; their logs are printed in turn once all have
+ended, and a child that fails, or runs past `CHILD_DEADLINE_S`, stops the
+others and fails the run). It prints the wall of every phase before the
+kernels line. Every phase that fails exits non-zero. The profiles run apart, each in a fresh process
 (`chip_smoke.py --profile-pivots dense|block|batch`): 200 pivots of the
 engine on the dense route and on the block route, and one wide batch.
 `chip_smoke.py --profiler-cost` times the staircase's solve before and
@@ -257,13 +262,34 @@ def assert_price_close(name, a_k, r_k, a_p, r_p) -> tuple[float, float]:
 
 
 def assert_deterministic(name, launch, reps: int = 10) -> str:
-    """`reps` launches on the same inputs must give the same bits."""
-    first = launch().clone()
+    """`reps` launches on the same inputs must give the same bits; `launch`
+    returns its output tensor or a tuple of them."""
+    def bits(out):
+        return [t.view(torch.int32).clone() for t in (out if isinstance(out, tuple) else (out,))]
+
+    first = bits(launch())
     for i in range(1, reps):
-        got = launch()
-        if not torch.equal(got.view(torch.int32), first.view(torch.int32)):
+        if not all(torch.equal(a, b) for a, b in zip(bits(launch()), first)):
             raise AssertionError(f"{name}: launch {i + 1} differs in its bits from launch 1")
     return f"{reps} launches bit-identical"
+
+
+def k2_library(binv, triple, rho, abar_r):
+    """One PyTorch call for each step of K2's function (a skinny matmul, a
+    division and `addr_` on a copy of binv): the library yardstick."""
+    scratch = binv.clone()
+    factor = torch.empty(binv.shape[0], dtype=binv.dtype, device=binv.device)
+
+    def library():
+        R = binv @ triple
+        torch.div(R[:, 0], abar_r, out=factor)
+        return scratch.addr_(factor, rho, alpha=-1.0), R
+    return library
+
+
+def k2_bytes(m: int) -> int:
+    """K2's bytes: binv read and binv' written, triple, rho, res, scal."""
+    return 4 * (2 * m * m + 3 * m + m + 2 + 3 * m)
 
 
 def check_k2(dev, flush, G32):
@@ -294,51 +320,53 @@ def check_k2(dev, flush, G32):
         raise AssertionError(f"K2 differs from its plain version by {err}")
     if float((bn0 - binv).abs().max()) != 0.0:
         raise AssertionError("K2 with gate = 0 changed binv")
-    factor = torch.empty(M, dtype=f32, device=dev)
-
-    def library():
-        R = binv @ triple
-        torch.div(R[:, 0], abar_r, out=factor)
-        return scratch.addr_(factor, rho, alpha=-1.0), R
-
-    scratch = binv.clone()
     scal = torch.stack([1.0 / abar_r, one])
     r32 = r.to(torch.int32).reshape(1)
     bout = torch.empty_like(binv)
     rout = torch.empty((M, 3), dtype=f32, device=dev)
-    ms = cold_ms(lambda: pivot._launch(binv, triple, rho, scal, r32, bout, rout), flush)
-    idle = cold_ms(lambda: pivot._launch(binv, triple, rho, scal, r32, bout, rout), flush,
-                   busy=False)
+
+    def launch():
+        pivot._launch(binv, triple, rho, scal, r32, bout, rout)
+        return bout, rout
+
+    det = assert_deterministic("K2", launch)
+    ms = cold_ms(launch, flush)
+    idle = cold_ms(launch, flush, busy=False)
+    floor = cold_ms(lambda: torch.cuda._sleep(0), flush)
     wrapper = cold_ms(lambda: fused_pivot_update(binv, triple, rho, abar_r, one, r), flush)
     plain = cold_ms(lambda: fused_pivot_update_reference(
         binv, triple, rho, abar_r, one, r), flush)
-    lib = cold_ms(library, flush)
-    nbytes = 4 * (2 * M * M + 3 * M + M + 2 + 3 * M)
+    lib = cold_ms(k2_library(binv, triple, rho, abar_r), flush)
+    nbytes = k2_bytes(M)
     b_ms, b_by = bound(nbytes, 8 * M * M)
-    print(f"K2 fused_pivot_update m={M}: max|err|={err:.3e}, gate=0 bit-exact; "
+    plan = pivot.k2_plan(M, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"K2 fused_pivot_update m={M} (clusters of {plan.cluster} x {plan.slice_cols} "
+          f"columns, tiles of {plan.tile_rows} rows, {plan.stages} stages): "
+          f"max|err|={err:.3e}, gate=0 bit-exact, {det}; "
           f"kernel {ms * 1e3:.1f} us (from an idle stream {idle * 1e3:.1f} us), "
           f"wrapper {wrapper * 1e3:.1f} us, "
           f"plain {plain * 1e3:.1f} us, library "
           f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}, "
-          f"{nbytes / 1e6:.1f} MB), {100 * b_ms / ms:.1f}% of the bound", flush=True)
+          f"{nbytes / 1e6:.1f} MB), {100 * b_ms / ms:.1f}% of the bound, "
+          f"{100 * b_ms / (ms - floor):.1f}% above the launch floor "
+          f"({floor * 1e3:.2f} us)", flush=True)
     return {"name": "K2 fused_pivot_update", "route": "cuda",
             "source": "clp_tpu_torch/csrc/pivot.cu",
             "replaces": "clp_tpu/ops/pallas_pivot.py:96",
             "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "launch_floor_ms": floor}
 
 
-def check_k2_above_limit(dev, flush, m: int) -> dict:
-    """K2 past the one-pass kernel's shared memory (m > 14,464), where the
-    wrapper takes the two-pass path: held against the plain version with
-    gate 1 and gate 0, the same bits over 10 launches, and its time against
-    the same byte bound as the main path's K2 (binv read once and binv'
-    written once, plus the small vectors), not the two passes' traffic."""
+def check_k2_wide(dev, flush, m: int) -> dict:
+    """K2 at a wide m (14,465 is odd, so its rows are not 16-byte aligned;
+    16,384 and 24,576 are past what 4 rows of binv in one block's shared
+    memory could hold): one counted launch, held against the plain version
+    with gate 1 and gate 0, the same bits over 10 launches, and its time
+    against the byte bound (binv read once and binv' written once, plus the
+    small vectors)."""
     from clp_tpu_torch.ops import pivot
     from clp_tpu_torch.ops.pivot import fused_pivot_update, fused_pivot_update_reference
 
-    if m <= pivot._K2_MAX_M:
-        raise AssertionError(f"m = {m} is within the one-pass kernel's limit")
     f32 = torch.float32
     g = torch.Generator(device=dev).manual_seed(m)
     # unit-norm rows, as in check_k2; g_q near rho so that the pivot
@@ -351,12 +379,16 @@ def check_k2_above_limit(dev, flush, m: int) -> dict:
                          dim=1).contiguous()
     abar_r = torch.dot(rho, gq)
     one = torch.ones((), dtype=f32, device=dev)
+    n0 = fused_pivot_update.launches
     bn, res = fused_pivot_update(binv, triple, rho, abar_r, one, r)
+    if fused_pivot_update.launches != n0 + 1:
+        raise AssertionError(f"K2 at m={m}: {fused_pivot_update.launches - n0} launches "
+                             f"counted for one call")
     bp, rp = fused_pivot_update_reference(binv, triple, rho, abar_r, one, r)
     torch.cuda.synchronize()
     # sums of m products of unit-norm rows in two orders: a few f32 spacings
     err = max(float((bn - bp).abs().max()), float((res - rp).abs().max()))
-    del bp, rp
+    del bp, rp, bn, res
     if not err < 1e-4:
         raise AssertionError(f"K2 at m={m} differs from its plain version by {err}")
     bn0, _ = fused_pivot_update(binv, triple, rho, abar_r, 0.0 * one, r)
@@ -370,31 +402,19 @@ def check_k2_above_limit(dev, flush, m: int) -> dict:
 
     def launch():
         pivot._launch(binv, triple, rho, scal, r32, bout, rout)
+        return bout, rout
 
-    launch()
-    b1, r1 = bout.clone(), rout.clone()
-    for i in range(1, 10):
-        launch()
-        if not (torch.equal(bout.view(torch.int32), b1.view(torch.int32))
-                and torch.equal(rout.view(torch.int32), r1.view(torch.int32))):
-            raise AssertionError(f"K2 at m={m}: launch {i + 1} differs in its bits")
-    del b1, r1, bn, res
+    det = assert_deterministic(f"K2 at m={m}", launch)
     ms = cold_ms(launch, flush)
     plain = cold_ms(lambda: fused_pivot_update_reference(binv, triple, rho, abar_r, one, r),
                     flush)
-    scratch = binv.clone()
-    factor = torch.empty(m, dtype=f32, device=dev)
-
-    def library():
-        R = binv @ triple
-        torch.div(R[:, 0], abar_r, out=factor)
-        return scratch.addr_(factor, rho, alpha=-1.0), R
-
-    lib = cold_ms(library, flush)
-    nbytes = 4 * (2 * m * m + 3 * m + m + 2 + 3 * m)
+    lib = cold_ms(k2_library(binv, triple, rho, abar_r), flush)
+    nbytes = k2_bytes(m)
     b_ms, b_by = bound(nbytes, 8 * m * m)
-    print(f"K2 fused_pivot_update above the one-pass limit, m={m} (two passes): "
-          f"max|err|={err:.3e}, gate=0 bit-exact, 10 launches bit-identical; "
+    plan = pivot.k2_plan(m, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"K2 fused_pivot_update m={m} (clusters of {plan.cluster} x {plan.slice_cols} "
+          f"columns, tiles of {plan.tile_rows} rows, {plan.stages} stages): one launch, "
+          f"max|err|={err:.3e}, gate=0 bit-exact, {det}; "
           f"kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, library {lib * 1e3:.1f} us, "
           f"bound {b_ms * 1e3:.1f} us ({b_by}, {nbytes / 1e6:.1f} MB), "
           f"{100 * b_ms / ms:.1f}% of the bound", flush=True)
@@ -1743,11 +1763,14 @@ class HighsRefs:
     def __init__(self, phase: str = "batch phase", workers: int | None = None):
         import concurrent.futures as cf
         import multiprocessing
+        import os
 
         self.phase = phase
         self.workers = workers or BP["highs_workers"]
+        # at a lower priority: the engines' host threads come first
         self.pool = cf.ProcessPoolExecutor(self.workers,
-                                           mp_context=multiprocessing.get_context("spawn"))
+                                           mp_context=multiprocessing.get_context("spawn"),
+                                           initializer=os.nice, initargs=(10,))
         self.futures: dict = {}
         self.checks: list = []
 
@@ -2992,6 +3015,168 @@ def profile_pivots(dev, route: str, pivots: int = 200) -> None:
           + f" (every kernel: build/profiles/profile_{route}.txt)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the phases after the main paths, in child processes that run at once
+# ---------------------------------------------------------------------------
+
+# Every phase after the main paths is host-bound: one process keeps the card
+# busy ~9% of a pivot (PERF.md §5), and in one process they took 829-1062 s
+# of a run allowed 1200. Each group runs in a child process of its own, all
+# started together (a group's phases in turn), so the run takes about its
+# longest group. The kernels and the main paths run before, alone, so their
+# times are not shared with another process.
+PHASE_GROUPS = (("batch",), ("mesh",), ("auto", "nonlinear"), ("barrier", "api"))
+# the children's CPU threads (torch, BLAS), so that four engines and their
+# HiGHS workers share the host's cores without waiting on one another's spins
+CHILD_THREADS = "2"
+# the children are stopped, and the run fails, at this many seconds from the
+# start: inside the 1200 s the run is allowed
+CHILD_DEADLINE_S = 1140.0
+
+
+def run_phases(names, stair_ref: float, main_pivots: int) -> dict:
+    """Run the named phases in turn in this process, the launch counts set
+    to 0 just before each and read just after (a phase sums its runs' own
+    counts), then the barrier's profiled factorizations last, since a
+    traced process launches more slowly. Returns {phase: {"wall": s,
+    "launches": {kernel: n}}}."""
+    dev = torch.device("cuda")
+
+    def k1(runs):
+        return {"K1": sum(r["launches"]["K1"] for r in runs if "launches" in r)}
+
+    def batch():
+        BP.update(BP_CUTS)
+        runs = batch_phase(dev, stair_ref)
+        return {k: sum(r["launches"][k] for r in runs) for k in ("K1", "K2", "K3")}
+
+    barrier_runs: list = []
+
+    def barrier():
+        barrier_runs.extend(barrier_phase(dev))
+        return {}
+
+    drive = {"barrier": barrier,
+             "auto": lambda: k1(auto_phase(dev)),
+             "nonlinear": lambda: k1(nonlinear_phase(dev)),
+             "batch": batch,
+             "api": lambda: {"K1": api_phase(dev, stair_ref)["launches"]},
+             "mesh": lambda: {"K1": mesh_phase(dev, stair_ref, main_pivots)["launches"]}}
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        zero_launches()
+        launches = drive[name]()
+        out[f"{name} phase"] = {"wall": time.perf_counter() - t0, "launches": launches}
+    if barrier_runs:
+        t0 = time.perf_counter()
+        factor_launches(barrier_runs)
+        out["factorization launches"] = {"wall": time.perf_counter() - t0, "launches": {}}
+    return out
+
+
+def _stop_group(proc) -> None:
+    """Stop a child and every process it started (its own session)."""
+    import os
+    import signal
+
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        try:
+            os.killpg(proc.pid, sig)
+        except ProcessLookupError:
+            return
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            continue
+        if sig == signal.SIGTERM:
+            time.sleep(1)  # its workers' own exit, before the group's SIGKILL
+
+
+def run_phase_groups(stair_ref: float, main_pivots: int, t_start: float) -> dict | None:
+    """Start one child (`chip_smoke.py --phases`) for each of PHASE_GROUPS,
+    all together, and wait for them; then print their logs in turn and
+    return their phases' walls and launches, or None when a child failed or
+    the deadline passed. Every child and what it started is stopped before
+    this returns."""
+    import os
+    import signal
+
+    log_dir = pathlib.Path(__file__).resolve().parent / "build" / "smoke_phases"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+        env[var] = CHILD_THREADS
+    children = []
+    # the driver's SIGTERM ends the parent through its `finally`
+    old = signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    failed = None
+    try:
+        for group in PHASE_GROUPS:
+            stem = "+".join(group)
+            log, res = log_dir / f"{stem}.log", log_dir / f"{stem}.json"
+            res.unlink(missing_ok=True)
+            with open(log, "w") as fh:
+                proc = subprocess.Popen(
+                    [sys.executable, str(pathlib.Path(__file__).resolve()), "--phases",
+                     ",".join(group), repr(stair_ref), str(main_pivots), str(res)],
+                    stdout=fh, stderr=subprocess.STDOUT, env=env, start_new_session=True)
+            children.append((stem, proc, log, res))
+        pending = list(children)
+        while pending and failed is None:
+            time.sleep(1.0)
+            for child in list(pending):
+                stem, proc, _, _ = child
+                if proc.poll() is None:
+                    continue
+                pending.remove(child)
+                _stop_group(proc)
+                print(f"[{time.perf_counter() - t_start:.1f} s since the start] child "
+                      f"{stem} done, exit code {proc.returncode}", flush=True)
+                if proc.returncode != 0:
+                    failed = f"child {stem} exited {proc.returncode}"
+            if pending and time.perf_counter() - t_start > CHILD_DEADLINE_S:
+                failed = (f"children {[c[0] for c in pending]} still running "
+                          f"{CHILD_DEADLINE_S:.0f} s from the start")
+    finally:
+        for _, proc, _, _ in children:
+            _stop_group(proc)
+        signal.signal(signal.SIGTERM, old)
+    phases: dict = {}
+    for stem, proc, log, res in children:
+        print(f"--- child {stem} ---", flush=True)
+        sys.stdout.write(log.read_text(errors="replace"))
+        if proc.returncode == 0:
+            phases.update(json.loads(res.read_text()))
+    sys.stdout.flush()
+    if failed is not None:
+        print(f"chip_smoke: {failed}", file=sys.stderr)
+        return None
+    return phases
+
+
+def phases_main(names: str, stair_ref: str, main_pivots: str, result: str) -> int:
+    """`chip_smoke.py --phases barrier,api STAIR_REF MAIN_PIVOTS RESULT`: the
+    child that the no-argument run starts for one of PHASE_GROUPS. It runs
+    those phases (`run_phases`, with the no-argument run's cuts) against the
+    staircase's HiGHS objective and its K1 pivots from the parent's main
+    path, and writes their walls and launches to RESULT as JSON."""
+    import os
+
+    if not torch.cuda.is_available() or "CLPTPU_PLATFORM" in os.environ:
+        print("chip_smoke: no card, or CLPTPU_PLATFORM is set", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from clp_tpu_torch.ops import build
+
+    build.build_all(["price", "pivot", "price_block"])  # built by the parent: a hash check
+    out = run_phases(names.split(","), float(stair_ref), int(main_pivots))
+    pathlib.Path(result).write_text(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -3034,7 +3219,9 @@ def main() -> int:
     G32 = staircase_g32(dev)
     k1 = check_k1(dev, flush, G32)
     k2 = check_k2(dev, flush, G32)
-    k2["above_limit"] = [check_k2_above_limit(dev, flush, m) for m in (14465, 16384)]
+    # the wide shapes, under "above_limit": m past 4 rows of binv in one
+    # block's shared memory (14,465 odd)
+    k2["above_limit"] = [check_k2_wide(dev, flush, m) for m in (14465, 16384, 24576)]
     k3 = check_k3(dev, flush, *staircase_blocks(dev, G32))
     del flush, G32
     mark("kernel phase")
@@ -3054,31 +3241,22 @@ def main() -> int:
     print(f"HiGHS objective {highs_obj!r}: all three main-path runs agree within "
           f"1e-6 * (1 + |obj|)", flush=True)
     mark("main paths")
-    barrier_runs = barrier_phase(dev)
-    mark("barrier phase")
-    auto_runs = auto_phase(dev)
-    mark("auto phase")
-    k1["auto_phase_launches"] = sum(r["launches"]["K1"] for r in auto_runs)
-    nl_runs = nonlinear_phase(dev)
-    mark("nonlinear phase")
-    k1["nonlinear_phase_launches"] = sum(r["launches"]["K1"] for r in nl_runs
-                                         if "launches" in r)
-    BP.update(BP_CUTS)
-    b_runs = batch_phase(dev, highs_obj)
-    mark("batch phase")
+    torch.cuda.empty_cache()  # the kernel phase's wide K2 buffers, for the children
+    t_groups = time.perf_counter()
+    phases = run_phase_groups(highs_obj, run_k1["iterations"], t_start)
+    if phases is None:
+        return 1
+    k1["auto_phase_launches"] = phases["auto phase"]["launches"]["K1"]
+    k1["nonlinear_phase_launches"] = phases["nonlinear phase"]["launches"]["K1"]
     for rec, name in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
-        rec["batch_phase_launches"] = sum(r["launches"][name] for r in b_runs)
-    zero_launches()
-    api = api_phase(dev, highs_obj)
-    mark("api phase")
-    k1["api_phase_launches"] = api["launches"]
-    mesh = mesh_phase(dev, highs_obj, run_k1["iterations"])
-    mark("mesh phase")
-    k1["mesh_phase_launches"] = mesh["launches"]
-    factor_launches(barrier_runs)
-    mark("factorization launches")
+        rec["batch_phase_launches"] = phases["batch phase"]["launches"][name]
+    k1["api_phase_launches"] = phases["api phase"]["launches"]["K1"]
+    k1["mesh_phase_launches"] = phases["mesh phase"]["launches"]["K1"]
     print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_walls.items())
-          + f"; total {time.perf_counter() - t_start:.1f}", flush=True)
+          + ", then in " + f"{len(PHASE_GROUPS)} processes at once: "
+          + ", ".join(f"{k} {v['wall']:.1f}" for k, v in phases.items())
+          + f" ({time.perf_counter() - t_groups:.1f} in all); "
+          f"total {time.perf_counter() - t_start:.1f}", flush=True)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     extra = ("launch_floor_ms", "above_limit", "auto_phase_launches",
@@ -3253,6 +3431,8 @@ if __name__ == "__main__":
     if len(args) == 2 and args[0] == "--profile-pivots" and args[1] in ("dense", "block",
                                                                         "batch"):
         sys.exit(profile_main(args[1]))
+    if len(args) == 5 and args[0] == "--phases":
+        sys.exit(phases_main(*args[1:]))
     if args == ["--nonlinear"]:
         sys.exit(nonlinear_main())
     if args == ["--batch"]:

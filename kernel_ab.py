@@ -1,20 +1,23 @@
-"""A/B timing of the port's PRICE kernels (K1, K3) in two checkouts, on one card.
+"""A/B timing of the port's kernels (K1, K2, K3) in two checkouts, on one card.
 
     python3 kernel_ab.py OTHER_CHECKOUT [--rounds N]
 
 OTHER_CHECKOUT is another checkout of this repository, for example a parent
 commit unpacked with `git archive` into a git-ignored directory. Each
-checkout's own `chip_smoke.check_k1` and `check_k3` build that checkout's
-kernels from its sources, hold them against their plain versions and time
-them; here each runs in a fresh process, in the order this, other, other,
-this for every round, with `chip_smoke.cold_ms` replaced by a timing under
-each of three L2 states before every launch:
+checkout's own `chip_smoke.check_k1`, `check_k3`, `check_k2` (m = 2048) and
+its check of K2 at the wide m = 16,384 (`check_k2_wide`; older checkouts
+name it `check_k2_above_limit`) build that checkout's kernels from its
+sources, hold them against their plain versions and time them; here each
+runs in a fresh process, in the order this, other, other, this for every
+round, with `chip_smoke.cold_ms` replaced by a timing under each of three
+L2 states before every launch:
 
 - "dirty": 64 MB zeroed, as `chip_smoke.cold_ms` flushes. The L2 is then
   full of dirty lines, which the timed kernel writes back as it reads.
 - "clean": 128 MB read. The L2 holds clean lines that a read evicts freely.
 - "warm": no flush. What the previous launch read stays in the 50 MB L2
-  where it fits (K3's 7 MB W does, K1's 55 MB G does not).
+  where it fits (K3's 7 MB W and K2's 16.8 MB binv at m = 2048 do, K1's
+  55 MB G and K2's 1.07 GB binv at m = 16,384 do not).
 
 Each time is the median over chip_smoke.REPS launches on a busy stream,
 beside the same timing of an empty launch (`torch.cuda._sleep(0)`), the
@@ -34,7 +37,7 @@ STATES = ("dirty", "clean", "warm")
 
 
 def measure(tree: str) -> dict:
-    """In this process: time `tree`'s K1 and K3 under every L2 state."""
+    """In this process: time `tree`'s K1, K3 and K2 under every L2 state."""
     sys.path.insert(0, tree)
     import torch
 
@@ -68,13 +71,18 @@ def measure(tree: str) -> dict:
 
     G32 = cs.staircase_g32(dev)
     blocks = cs.staircase_blocks(dev, G32)
+    wide = getattr(cs, "check_k2_wide", None) or cs.check_k2_above_limit
     res = {"tree": tree}
     for state in STATES:
         cs.cold_ms = timer(flushes[state])
         k1 = cs.check_k1(dev, dirty, G32)
         k3 = cs.check_k3(dev, dirty, *blocks)
+        k2 = cs.check_k2(dev, dirty, G32)
+        k2w = wide(dev, dirty, 16384)
         res[state] = {"K1_ms": k1["ms"], "K1_wrapper_ms": k1["wrapper_ms"],
                       "K3_ms": k3["ms"], "K3_wrapper_ms": k3["wrapper_ms"],
+                      "K2_ms": k2["ms"], "K2_wrapper_ms": k2["wrapper_ms"],
+                      "K2_16384_ms": k2w["ms"],
                       "floor_ms": cs.cold_ms(lambda: torch.cuda._sleep(0), dirty)}
     return res
 

@@ -252,19 +252,40 @@ def test_k1_and_k3_back_to_back_on_card(cuda_device):
                                (k1[0] @ k1[1]).cpu().numpy(), rtol=1e-4, atol=2e-4)
 
 
+def unit_pivot_inputs(m, r, seed=3):
+    """binv with unit-norm rows, g_q near rho (abar_r near 1), an N(0, 1)
+    flip flow: the scales of chip_smoke's K2 checks."""
+    rng = np.random.default_rng(seed)
+    binv = (rng.standard_normal((m, m)) / np.sqrt(m)).astype(np.float32)
+    rho = binv[r].copy()
+    gq = (rho + rng.standard_normal(m) / np.sqrt(m)).astype(np.float32)
+    triple = np.stack([gq, rho, rng.standard_normal(m).astype(np.float32)], axis=1)
+    return binv, triple, rho, np.float32(rho @ gq), r
+
+
 @pytest.mark.parametrize("gate", [1.0, 0.0])
-def test_pivot_kernel_on_card(cuda_device, gate):
-    binv, triple, rho, abar_r, r = pivot_inputs()
+@pytest.mark.parametrize("m", [1, 5, 96, 2048, 2049])
+def test_pivot_kernel_on_card(cuda_device, m, gate):
+    """One cluster of one CTA (m = 1, 5, 96), 4 CTAs with aligned rows
+    (2048) and 8 CTAs with odd rows (2049), r in a middle tile: against the
+    plain version, gate 0 bit for bit, the same bits over 10 launches."""
+    inputs = pivot_inputs() if m == 96 else unit_pivot_inputs(m, (2 * m) // 5)
+    binv, triple, rho, abar_r, r = inputs
     args = [torch.as_tensor(a, device=cuda_device) for a in (binv, triple, rho, abar_r)]
     args += [torch.tensor(gate, device=cuda_device), torch.tensor(r, device=cuda_device)]
     bk, rk = fused_pivot_update(*args)
     bp, rp = fused_pivot_update_reference(*args)
     assert float((bk - bp).abs().max()) < 1e-5
-    # R reaches |20| here, where f32 spacing is 1.9e-6: two summation
-    # orders of 96 products differ by a few spacings
+    # at m = 96, R reaches |20|, where f32 spacing is 1.9e-6; elsewhere the
+    # rows have unit norm and R reaches |4|: two summation orders of m
+    # products differ by a few spacings
     np.testing.assert_allclose(rk.cpu().numpy(), rp.cpu().numpy(), rtol=2e-6, atol=1e-5)
     if gate == 0.0:
         assert float((bk - args[0]).abs().max()) == 0.0
+    for _ in range(9):
+        b2, r2 = fused_pivot_update(*args)
+        assert torch.equal(b2.view(torch.int32), bk.view(torch.int32))
+        assert torch.equal(r2.view(torch.int32), rk.view(torch.int32))
 
 
 def test_wrappers_launch_and_never_run_plain_on_card(cuda_device, monkeypatch):
@@ -429,10 +450,11 @@ def test_barrier_solve_on_card(cuda_device):
 
 @pytest.mark.parametrize("gate", [1.0, 0.0])
 def test_pivot_kernel_above_the_shared_memory_limit_on_card(cuda_device, gate):
-    """m = 14,465, one row past the one-pass kernel's shared memory: the
-    two-pass path, one counted launch, against the plain version; gate 0
-    passes binv through bit for bit."""
-    m, r = pivot._K2_MAX_M + 1, 9000
+    """m = 14,465: past 4 rows of binv in one block's shared memory, and
+    odd, so no row but the first starts 16-byte aligned. One counted
+    launch, against the plain version; gate 0 passes binv through bit for
+    bit."""
+    m, r = 14465, 9000
     g = torch.Generator(device="cpu").manual_seed(5)
     binv = (torch.randn(m, m, generator=g) / m ** 0.5).to(cuda_device)
     rho = binv[r].clone()
