@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from .. import trace
 from ..device import check_fp32_precision, on_accelerator, resolve_device
 from ..forms import StandardLP, to_ipm_form, to_standard_form
 from ..interior.mehrotra import IPMOptions, ipm_solve_batched
@@ -239,6 +240,8 @@ def _chunk(S: dict, active: torch.Tensor, step, chunk: int, U: int, max_iter: in
     run = active & pred(S, k)
     while (yield run.any()):
         n = min(U, chunk - k) if clip else U
+        # under vmap every lane of the batch computes each step
+        trace.count("lane_steps", run.shape[0] * n)
         for _ in range(n):
             S = gate(run, step(S), S)
         k += n
@@ -343,6 +346,7 @@ def _brerun_prog(E: _Lanes, S: dict, need: torch.Tensor):
     """Re-solve the lanes `need` from their own bases (the fake-bound
     escalation): recompute, make dual feasible, a whole dual solve."""
     idx = yield from _lanes_of(need)
+    trace.count("rerun_lanes", idx.numel())
     Es = E.take(idx)
     sub = take(S, idx)
     sub["status"] = torch.full_like(sub["status"], CONTINUE)
@@ -356,6 +360,7 @@ def _bprimal_finish_prog(E: _Lanes, S: dict, need: torch.Tensor):
     finish with the primal on the true bounds (resetFakeBounds + primal
     cleanup, ClpSimplexDual.cpp:8303)."""
     idx = yield from _lanes_of(need)
+    trace.count("finish_lanes", idx.numel())
     Es = E.take(idx)
     sub = take(S, idx)
     vs = sub["vstat"]
@@ -401,6 +406,7 @@ def _compacting_prog(E: _Lanes, S: dict, rounds_per_dispatch: int = 6):
         stat, ver_np, iters = yield torch.stack(
             [S["status"].to(torch.int64), ver.to(torch.int64),
              S["iterations"].to(torch.int64)])
+        trace.count("dispatches")
         ver_np = ver_np.astype(bool)
         # settled: verified claims and hard stops. A lane whose terminal
         # claim persists unverified with no pivots over two dispatches is
@@ -419,6 +425,7 @@ def _compacting_prog(E: _Lanes, S: dict, rounds_per_dispatch: int = 6):
             keep = ~finish
             if not keep.any():
                 return out
+            trace.count("compactions")
             kidx = torch.as_tensor(np.flatnonzero(keep), device=dev)
             live = live.index_select(0, kidx)
             prev_iters, stall = prev_iters[keep], stall[keep]
@@ -454,8 +461,24 @@ def _placed(mesh, options: SolveOptions, batched: StandardLP) -> list:
     else:
         blocks = zip(scenario_sharding(mesh, options.mesh_axis).bounds(B), mesh.devices)
     return [StandardLP(**{k: None if getattr(batched, k) is None
-                          else getattr(batched, k)[a:b].to(dev) for k in _LP + ("Q",)})
+                          else _to_device(getattr(batched, k)[a:b], dev)
+                          for k in _LP + ("Q",)})
             for (a, b), dev in blocks]
+
+
+def _to_device(t: torch.Tensor, dev) -> torch.Tensor:
+    """t on `dev`, its bytes counted as h2d_bytes when they leave the host."""
+    if t.device.type == "cpu" and torch.device(dev).type != "cpu":
+        trace.count("h2d_bytes", t.nbytes)
+    return t.to(dev)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """t on the host, its bytes counted as d2h_bytes when they come off a
+    device."""
+    if t.device.type != "cpu":
+        trace.count("d2h_bytes", t.nbytes)
+    return t.cpu()
 
 
 def _each(flags, progs) -> list:
@@ -468,33 +491,17 @@ def _each(flags, progs) -> list:
     return out
 
 
-def solve_batch_dual_simplex(
-    models: Sequence[Model],
-    options: Optional[SolveOptions] = None,
-    mesh=None,
-    warm: Optional[Solution] = None,
-) -> list[Solution]:
-    """Batched dual simplex: the whole pivot loop over all instances at once.
+def _dual_lanes(shards: list, options: SolveOptions, warm: Optional[Solution]):
+    """The batched dual over the placed lane blocks: the compacting pivot
+    loop, the fake-bound escalation and the primal finish. Returns each
+    block's states, LP dicts and fake-bound flags, and the options of the
+    last escalation."""
+    from ..simplex.driver import _warm_state
 
-    The per-instance host policies (fake-bound escalation, algorithm
-    switching) run batched where they can: lanes that end on a fake bound
-    re-solve with a larger bound, then finish with the primal, still as one
-    batch. Only numerical leftovers go through the single-instance driver.
-
-    Over a `mesh` (axis options.mesh_axis) each entry runs its contiguous
-    block of lanes on its device; the blocks advance in lockstep, one host
-    read per block of pivots for the whole mesh, and each compacts its own
-    live set. The escalation decisions stay the batch's, as without a mesh.
-    """
-    from ..simplex.driver import _extract, _warm_state, simplex_solve
-
-    options = options or SolveOptions()
-    batched, _infos = stack_models_simplex(models, "cpu")
-    shards = _placed(mesh, options, batched)
     accel = on_accelerator(shards[0].G)
     if accel:
         check_fp32_precision()
-    m0, nt0 = batched.G.shape[1:]
+    m0, nt0 = shards[0].G.shape[1:]
     opts = _engine_options(options, m0, accel)
     Es, Ss = [], []
     for lp_s in shards:
@@ -516,46 +523,96 @@ def solve_batch_dual_simplex(
     lpds = [E.lpd for E in Es]
     fakes = [_fake_lanes(lpd, S) for lpd, S in zip(lpds, Ss)]
     opts_e = opts
-    for _ in range(2):
-        need = [(S["status"] == OPTIMAL) & f for S, f in zip(Ss, fakes)]
-        flags = host_read([n.any() for n in need])
-        if not any(flags):
-            break
-        opts_e = dataclasses.replace(opts_e, dual_bound=opts_e.dual_bound * 100.0)
-        Es = [E.with_opts(opts_e) for E in Es]
-        re = _each(flags, [lambda i=i: _brerun_prog(Es[i], Ss[i], need[i])
-                           for i in range(len(Es))])
-        Ss = [S if r is None else r for S, r in zip(Ss, re)]
-        fakes = [_fake_lanes(lpd, S) for lpd, S in zip(lpds, Ss)]
+    with trace.span("escalation"):
+        for _ in range(2):
+            need = [(S["status"] == OPTIMAL) & f for S, f in zip(Ss, fakes)]
+            flags = host_read([n.any() for n in need])
+            if not any(flags):
+                break
+            opts_e = dataclasses.replace(opts_e, dual_bound=opts_e.dual_bound * 100.0)
+            Es = [E.with_opts(opts_e) for E in Es]
+            re = _each(flags, [lambda i=i: _brerun_prog(Es[i], Ss[i], need[i])
+                               for i in range(len(Es))])
+            Ss = [S if r is None else r for S, r in zip(Ss, re)]
+            fakes = [_fake_lanes(lpd, S) for lpd, S in zip(lpds, Ss)]
     # OPTIMAL on a fake bound needs the true-bounds primal finish; an
     # infeasibility claim with fakes active is suspect for the same reason
     # the driver adjudicates it (a folded free variable prices one way)
-    need_pf = [((S["status"] == OPTIMAL) | (S["status"] == engine.PRIMAL_INFEASIBLE)) & f
-               for S, f in zip(Ss, fakes)]
-    flags = host_read([n.any() for n in need_pf])
-    if any(flags):
-        re = _each(flags, [lambda i=i: _bprimal_finish_prog(Es[i], Ss[i], need_pf[i])
-                           for i in range(len(Es))])
-        Ss = [S if r is None else r for S, r in zip(Ss, re)]
-        fakes = [_fake_lanes(lpd, S) for lpd, S in zip(lpds, Ss)]
+    with trace.span("primal_finish"):
+        need_pf = [((S["status"] == OPTIMAL) | (S["status"] == engine.PRIMAL_INFEASIBLE)) & f
+                   for S, f in zip(Ss, fakes)]
+        flags = host_read([n.any() for n in need_pf])
+        if any(flags):
+            re = _each(flags, [lambda i=i: _bprimal_finish_prog(Es[i], Ss[i], need_pf[i])
+                               for i in range(len(Es))])
+            Ss = [S if r is None else r for S, r in zip(Ss, re)]
+            fakes = [_fake_lanes(lpd, S) for lpd, S in zip(lpds, Ss)]
+    return Ss, lpds, fakes, opts_e
+
+
+def solve_batch_dual_simplex(
+    models: Sequence[Model],
+    options: Optional[SolveOptions] = None,
+    mesh=None,
+    warm: Optional[Solution] = None,
+) -> list[Solution]:
+    """Batched dual simplex: the whole pivot loop over all instances at once.
+
+    The per-instance host policies (fake-bound escalation, algorithm
+    switching) run batched where they can: lanes that end on a fake bound
+    re-solve with a larger bound, then finish with the primal, still as one
+    batch. Only numerical leftovers go through the single-instance driver.
+
+    Over a `mesh` (axis options.mesh_axis) each entry runs its contiguous
+    block of lanes on its device; the blocks advance in lockstep, one host
+    read per block of pivots for the whole mesh, and each compacts its own
+    live set. The escalation decisions stay the batch's, as without a mesh.
+
+    Traced (clp_tpu_torch/trace.py) as the root `batch_dual` with the
+    spans stack, place, loop (escalation, primal_finish), copy_back and
+    unpack (leftover, one a lane sent to the single-instance driver).
+    """
+    with trace.span("batch_dual", lanes=len(models)) as root:
+        # the call's locals (gigabytes of host copies) are freed as
+        # _batch_dual returns, inside the root, so the root spans the call
+        return _batch_dual(models, options or SolveOptions(), mesh, warm, root)
+
+
+def _batch_dual(models, options: SolveOptions, mesh, warm, root) -> list[Solution]:
+    from ..simplex.driver import _extract, simplex_solve
+
+    with trace.span("stack"):
+        batched, _infos = stack_models_simplex(models, "cpu")
+    root.set(m=batched.G.shape[1], n=batched.G.shape[2])
+    with trace.span("place"):
+        shards = _placed(mesh, options, batched)
+    with trace.span("loop"):
+        Ss, lpds, fakes, opts_e = _dual_lanes(shards, options, warm)
 
     # one transfer of each block to the host, then numpy per lane
-    S_h = {k: torch.cat([S[k].cpu() for S in Ss]) for k in _SF}
-    lp_h = {k: torch.cat([lpd[k].cpu() for lpd in lpds]) for k in _LP}
-    fakes_h = torch.cat([f.cpu() for f in fakes]).numpy()
-    out = []
-    for i, mod in enumerate(models):
-        st_i = SimplexState(**lane(S_h, i))
-        status = int(st_i.status)
-        clean = status in (OPTIMAL, engine.PRIMAL_INFEASIBLE, engine.DUAL_INFEASIBLE) \
-            and not (status == OPTIMAL and fakes_h[i])
-        if clean:
-            sol = _extract(mod, _lp(lane(lp_h, i)), st_i, opts_e, status)
-        else:
-            # numerical leftovers only: the per-instance policies
-            sol = simplex_solve(mod, options, dual=True)
-        mod.solution = sol
-        out.append(sol)
+    with trace.span("copy_back"):
+        S_h = {k: torch.cat([_to_host(S[k]) for S in Ss]) for k in _SF}
+        lp_h = {k: torch.cat([_to_host(lpd[k]) for lpd in lpds]) for k in _LP}
+        fakes_h = torch.cat([_to_host(f) for f in fakes]).numpy()
+    if trace.enabled():
+        trace.count("lane_pivots", S_h["iterations"].sum())
+        trace.count("refactors", S_h["refactors"].sum())
+    with trace.span("unpack"):
+        out = []
+        for i, mod in enumerate(models):
+            st_i = SimplexState(**lane(S_h, i))
+            status = int(st_i.status)
+            clean = status in (OPTIMAL, engine.PRIMAL_INFEASIBLE, engine.DUAL_INFEASIBLE) \
+                and not (status == OPTIMAL and fakes_h[i])
+            if clean:
+                sol = _extract(mod, _lp(lane(lp_h, i)), st_i, opts_e, status)
+            else:
+                # numerical leftovers only: the per-instance policies
+                trace.count("leftover_lanes")
+                with trace.span("leftover", lane=i):
+                    sol = simplex_solve(mod, options, dual=True)
+            mod.solution = sol
+            out.append(sol)
     return out
 
 
@@ -572,45 +629,65 @@ def solve_batch_ipm(
     """Same-shape models through the lane-wise batched IPM. LPs share one
     banded plan where RCM on the union pattern makes it pay (the reference's
     symbolic/numeric split, ClpCholeskyBase.cpp:638: order once, factor
-    many), else run the dense normal equations."""
+    many), else run the dense normal equations.
+
+    Traced (clp_tpu_torch/trace.py) as the root `batch_ipm` with the spans
+    stack, place (without a mesh; over one, the blocks are placed inside
+    loop), loop, copy_back and unpack.
+    """
+    with trace.span("batch_ipm", lanes=len(models)) as root:
+        # as in solve_batch_dual_simplex: the locals are freed inside the root
+        return _batch_ipm(models, options, mesh, root)
+
+
+def _batch_ipm(models, options: SolveOptions, mesh, root) -> list[Solution]:
     from ..interior.mehrotra import ipm_batched_prog
     from ..solve import _ipm_to_solution, _rcm_band_plan
 
-    batched, infos = stack_models(models, options.device if mesh is None else "cpu")
-    opts = IPMOptions(tol=options.barrier_tolerance, max_iter=options.barrier_max_iterations)
-    perm = None
-    if batched.Q is None:
-        union = (batched.G.abs() > 0).any(dim=0).cpu().numpy()
-        perm, nb = _rcm_band_plan(union.astype(np.float64))
-        if perm is not None:
-            perm = np.ascontiguousarray(perm)
-            pj = torch.as_tensor(perm, device=batched.G.device)
-            batched = dataclasses.replace(batched, G=batched.G.index_select(1, pj),
-                                          b=batched.b.index_select(1, pj))
-            opts = dataclasses.replace(opts, band_nb=nb)
+    with trace.span("stack"):
+        batched, infos = stack_models(models, "cpu")
+    root.set(m=batched.G.shape[1], n=batched.G.shape[2])
     if mesh is None:
-        res = ipm_solve_batched(batched, opts)
-        res = dataclasses.replace(res, **{f.name: getattr(res, f.name).cpu()
-                                          for f in dataclasses.fields(res)})
-    else:
-        # each entry's block of lanes on its device, the IPM iterations of
-        # all blocks in lockstep; the results meet on the host
-        parts = lockstep([ipm_batched_prog(lp_s, opts)
-                          for lp_s in _placed(mesh, options, batched)])
-        res = dataclasses.replace(parts[0], **{
-            f.name: torch.cat([getattr(r, f.name).cpu() for r in parts])
-            for f in dataclasses.fields(parts[0])})
-    if perm is not None:
-        y = torch.empty_like(res.y)
-        y[:, torch.as_tensor(perm)] = res.y
-        res.y = y
-    out = []
-    for i, (mod, info) in enumerate(zip(models, infos)):
-        one = dataclasses.replace(res, **{f.name: getattr(res, f.name)[i]
-                                          for f in dataclasses.fields(res)})
-        sol = _ipm_to_solution(mod, one, info, options)
-        mod.solution = sol
-        out.append(sol)
+        with trace.span("place"):
+            batched = _placed(None, options, batched)[0]
+    with trace.span("loop"):
+        opts = IPMOptions(tol=options.barrier_tolerance,
+                          max_iter=options.barrier_max_iterations)
+        perm = None
+        if batched.Q is None:
+            union = _to_host((batched.G.abs() > 0).any(dim=0)).numpy()
+            perm, nb = _rcm_band_plan(union.astype(np.float64))
+            if perm is not None:
+                perm = np.ascontiguousarray(perm)
+                pj = torch.as_tensor(perm, device=batched.G.device)
+                batched = dataclasses.replace(batched, G=batched.G.index_select(1, pj),
+                                              b=batched.b.index_select(1, pj))
+                opts = dataclasses.replace(opts, band_nb=nb)
+        if mesh is None:
+            parts = [ipm_solve_batched(batched, opts)]
+        else:
+            # each entry's block of lanes on its device, the IPM
+            # iterations of all blocks in lockstep; the results meet on
+            # the host
+            parts = lockstep([ipm_batched_prog(lp_s, opts)
+                              for lp_s in _placed(mesh, options, batched)])
+    with trace.span("copy_back"):
+        host = [{f.name: _to_host(getattr(r, f.name)) for f in dataclasses.fields(r)}
+                for r in parts]
+        res = dataclasses.replace(parts[0], **(host[0] if len(host) == 1 else {
+            k: torch.cat([h[k] for h in host]) for k in host[0]}))
+    with trace.span("unpack"):
+        if perm is not None:
+            y = torch.empty_like(res.y)
+            y[:, torch.as_tensor(perm)] = res.y
+            res.y = y
+        out = []
+        for i, (mod, info) in enumerate(zip(models, infos)):
+            one = dataclasses.replace(res, **{f.name: getattr(res, f.name)[i]
+                                              for f in dataclasses.fields(res)})
+            sol = _ipm_to_solution(mod, one, info, options)
+            mod.solution = sol
+            out.append(sol)
     return out
 
 

@@ -8,15 +8,31 @@ per mesh entry (parallel/mesh.py): each round it lets every program run
 to its next read, so the work of all of them is queued before any waits,
 then moves every tensor asked for to the first program's device and reads
 them in ONE device-to-host copy. `run` drives one program alone, with the
-same reads a plain loop would make.
+same reads a plain loop would make. Each host read is counted, with the
+time the host blocked in it (clp_tpu_torch/trace.py: host_reads,
+host_read_ns).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Generator, Sequence
 
 import numpy as np
 import torch
+
+from .. import trace
+
+
+def _blocking_copy(t: torch.Tensor) -> torch.Tensor:
+    """t on the host, counted as one host read and the time it blocked."""
+    if not trace.enabled():
+        return t.cpu()
+    t0 = time.perf_counter_ns()
+    out = t.cpu()
+    trace.count("host_read_ns", time.perf_counter_ns() - t0)
+    trace.count("host_reads")
+    return out
 
 
 def host_read(ts: Sequence[torch.Tensor]) -> list:
@@ -25,9 +41,10 @@ def host_read(ts: Sequence[torch.Tensor]) -> list:
         if t.is_floating_point() or t.is_complex():
             raise TypeError("a lockstep read carries integer or bool tensors only")
     if len(ts) == 1:
-        return [ts[0].cpu().numpy()]
+        return [_blocking_copy(ts[0]).numpy()]
     dev = ts[0].device
-    flat = torch.cat([t.reshape(-1).to(device=dev, dtype=torch.int64) for t in ts]).cpu()
+    flat = _blocking_copy(torch.cat([t.reshape(-1).to(device=dev, dtype=torch.int64)
+                                     for t in ts]))
     out, at = [], 0
     for t in ts:
         n = t.numel()
