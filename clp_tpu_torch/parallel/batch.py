@@ -37,7 +37,7 @@ from torch.func import vmap
 
 from .. import trace
 from ..device import check_fp32_precision, on_accelerator, resolve_device
-from ..forms import StandardLP, to_ipm_form, to_standard_form
+from ..forms import StandardLP, batch_shape, to_device, to_ipm_form, to_standard_form_batch
 from ..interior.mehrotra import IPMOptions, ipm_solve_batched
 from ..model import Model, Solution
 from ..options import SolveOptions
@@ -86,21 +86,10 @@ def stack_models(models: Sequence[Model], device="cuda") -> tuple[StandardLP, li
 
 
 def stack_models_simplex(models: Sequence[Model], device="cuda") -> tuple[StandardLP, list]:
-    """Stack same-shape models into one batched StandardLP (simplex form)."""
-    lps, infos = [], []
-    shape = None
-    for mod in models:
-        lp, info = to_standard_form(mod, device="cpu")
-        if shape is None:
-            shape = lp.G.shape
-        elif lp.G.shape != shape:
-            raise ValueError("all models in a batch must share shape")
-        lps.append(lp)
-        infos.append(info)
-    has_q = [lp.Q is not None for lp in lps]
-    if any(has_q) and not all(has_q):
-        raise ValueError("mixing QP and LP instances in one batch")
-    return _stack(lps, resolve_device(device)), infos
+    """Stack same-shape models into one batched StandardLP (simplex form),
+    built on `device` from each model's sparse data
+    (forms.to_standard_form_batch)."""
+    return to_standard_form_batch(models, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -451,26 +440,32 @@ def _engine_options(options: SolveOptions, m0: int, accel: bool) -> SimplexOptio
     )
 
 
-def _placed(mesh, options: SolveOptions, batched: StandardLP) -> list:
-    """The batch's lane blocks, each a StandardLP on its device: one per
-    mesh entry (contiguous blocks, as scenario_sharding splits them), or
-    the whole batch on options.device without a mesh."""
-    B = batched.G.shape[0]
+def _blocks(mesh, options: SolveOptions, B: int) -> list:
+    """((a, b), device) for each block of lanes: one per mesh entry
+    (contiguous blocks, as scenario_sharding splits them), or the whole
+    batch on options.device without a mesh."""
     if mesh is None:
-        blocks = [((0, B), resolve_device(options.device))]
-    else:
-        blocks = zip(scenario_sharding(mesh, options.mesh_axis).bounds(B), mesh.devices)
+        return [((0, B), resolve_device(options.device))]
+    return list(zip(scenario_sharding(mesh, options.mesh_axis).bounds(B), mesh.devices))
+
+
+def _placed(mesh, options: SolveOptions, batched: StandardLP) -> list:
+    """The host batch's lane blocks, each a StandardLP copied to its
+    device."""
     return [StandardLP(**{k: None if getattr(batched, k) is None
-                          else _to_device(getattr(batched, k)[a:b], dev)
+                          else to_device(getattr(batched, k)[a:b], dev)
                           for k in _LP + ("Q",)})
-            for (a, b), dev in blocks]
+            for (a, b), dev in _blocks(mesh, options, batched.G.shape[0])]
 
 
-def _to_device(t: torch.Tensor, dev) -> torch.Tensor:
-    """t on `dev`, its bytes counted as h2d_bytes when they leave the host."""
-    if t.device.type == "cpu" and torch.device(dev).type != "cpu":
-        trace.count("h2d_bytes", t.nbytes)
-    return t.to(dev)
+def _built_simplex(mesh, options: SolveOptions, models) -> tuple[list, list]:
+    """The batch's simplex form as lane blocks, each built on its device
+    from its own models, and the per-lane form infos."""
+    blocks = _blocks(mesh, options, len(models))
+    if len(blocks) > 1:
+        batch_shape(models)  # the blocks must agree with each other
+    built = [stack_models_simplex(models[a:b], dev) for (a, b), dev in blocks]
+    return [lp for lp, _ in built], [i for _, infos in built for i in infos]
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -582,10 +577,10 @@ def _batch_dual(models, options: SolveOptions, mesh, warm, root) -> list[Solutio
     from ..simplex.driver import _extract, simplex_solve
 
     with trace.span("stack"):
-        batched, _infos = stack_models_simplex(models, "cpu")
-    root.set(m=batched.G.shape[1], n=batched.G.shape[2])
+        shards, _infos = _built_simplex(mesh, options, models)
+    root.set(m=shards[0].G.shape[1], n=shards[0].G.shape[2])
     with trace.span("place"):
-        shards = _placed(mesh, options, batched)
+        pass  # each block was built on its device: nothing is left to copy in
     with trace.span("loop"):
         Ss, lpds, fakes, opts_e = _dual_lanes(shards, options, warm)
 
@@ -759,17 +754,17 @@ def solve_batch_qp_simplex(
     from ..simplex.driver import _ENGINE_TO_VS
 
     options = options or SolveOptions()
-    batched, infos = stack_models_simplex(models, "cpu")
-    if batched.Q is None:
+    shards, infos = _built_simplex(mesh, options, models)
+    if shards[0].Q is None:
         raise ValueError("solve_batch_qp_simplex needs quadratic objectives"
                          " (use solve_batch_dual_simplex for LPs)")
-    m0, nt0 = batched.G.shape[1:]
+    m0, nt0 = shards[0].G.shape[1:]
     n0 = nt0 - m0
     opts = SimplexOptions(
         refactor_frequency=options.refactor_frequency or 100,
         max_iterations=int(min(options.max_iterations or 10 ** 9, 50 * (m0 + n0) + 10000)),
     )
-    parts = lockstep([_qp_prog(lp_s, opts) for lp_s in _placed(mesh, options, batched)])
+    parts = lockstep([_qp_prog(lp_s, opts) for lp_s in shards])
     S0 = {k: torch.cat([p[0][k].cpu() for p in parts]) for k in ("status", "iterations")}
     Q = {k: torch.cat([p[1][k].cpu() for p in parts]) for k in _QF if k != "binv"}
     y_all = torch.cat([p[2].cpu() for p in parts])

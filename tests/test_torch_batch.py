@@ -77,6 +77,79 @@ def test_stacked_forms_match_jax(form):
         assert np.array_equal(np.asarray(getattr(jlp, k)), getattr(tlp, k).numpy())
 
 
+def _form_lanes(case):
+    """Four 5 x 7 lanes for the batched simplex form, one case each."""
+    rng = np.random.default_rng(11)
+    m, n = 5, 7
+    models = []
+    for k in range(4):
+        A = sp.random(m, n, density=0.4, random_state=k if case == "patterns" else 0,
+                      format="csc") * (1.0 + k)
+        if case == "duplicates":
+            # column 0 unsorted with (2, 0) three times: summed in storage
+            # order it is ((0 + 1e16) + 1) - 1e16 = 0, in another order 1
+            R = A[:, 2:]
+            A = sp.csc_matrix((np.r_[1e16, 3.0 + k, 1.0, -1e16, 0.5, 0.25, R.data],
+                               np.r_[2, 0, 2, 2, 1, 1, R.indices], np.r_[0, 4, 6 + R.indptr]),
+                              shape=(m, n))
+        elif case == "zeros":
+            # an explicit 0.0 and -0.0 (todense() writes 0.0 for both) and
+            # an empty column 3
+            D = A.toarray()
+            D[:, 3] = 0.0
+            D[4, :2] = 0.0
+            r, col = np.nonzero(D)
+            A = sp.csc_matrix((np.r_[D[r, col], 0.0, -0.0], (np.r_[r, 4, 4], np.r_[col, 0, 1])),
+                              shape=(m, n))
+        cl = rng.uniform(-1, 0, n)
+        cu = rng.uniform(1, 2, n)
+        rl = rng.uniform(-2, -1, m)
+        ru = rng.uniform(1, 2, m)
+        if case == "infinite":
+            cl[:2], cu[2:4], rl[0], ru[1] = -clp_tpu_torch.INF, clp_tpu_torch.INF, -2e30, 3e30
+        c = rng.standard_normal(n)
+        c[1] = 0.0
+        mod = clp_tpu_torch.Model()
+        mod.load_problem(A, cl, cu, c, rl, ru)
+        mod.objective_offset = 0.5 * k
+        if case in ("maximise", "qp") and k % 2:
+            mod.set_maximize()
+        if case == "qp":
+            Q = sp.csc_matrix((np.r_[2.0 + k, 1e16, 1.0, -1e16, 0.5, 0.5],
+                               np.r_[0, 1, 1, 1, 2, 1], np.r_[0, 1, 4, 5, 6, 6, 6, 6]),
+                              shape=(n, n))
+            mod.load_quadratic_objective(Q)
+        models.append(mod)
+    return models
+
+
+@pytest.mark.parametrize("case", ["duplicates", "zeros", "patterns", "maximise", "infinite",
+                                  "qp"])
+def test_batched_simplex_form_is_the_stacked_lane_forms_bit_for_bit(case):
+    """forms.to_standard_form_batch (the scatter the card runs, here on the
+    CPU) against torch.stack of each lane's to_standard_form: G, b, c, l,
+    u and Q bit for bit, signs of zeros included, and the same infos."""
+    models = _form_lanes(case)
+    A0 = models[0].matrix
+    if case == "duplicates":
+        assert not A0.has_canonical_format
+    if case == "zeros":
+        assert (A0.data == 0).sum() == 2 and np.signbit(A0.data).any()
+        assert A0.indptr[4] == A0.indptr[3]
+    lp, infos = tb.stack_models_simplex(models, "cpu")
+    singles = [to_standard_form(mod, device="cpu") for mod in models]
+    for k in ("G", "b", "c", "l", "u", "Q"):
+        got, want = getattr(lp, k), [getattr(s, k) for s, _ in singles]
+        if want[0] is None:
+            assert got is None and case != "qp"
+            continue
+        want = torch.stack(want)
+        assert got.dtype == want.dtype and got.shape == want.shape, k
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64)), k
+    assert ([(i.n, i.m, i.sense, i.offset) for i in infos]
+            == [(i.n, i.m, i.sense, i.offset) for _, i in singles])
+
+
 def test_mixed_lp_qp_batch_raises():
     a, b = port_model(jgen.random_lp(5, 8, seed=0)), port_model(jgen.random_lp(5, 8, seed=1))
     b.load_quadratic_objective(sp.identity(8, format="csc"))

@@ -617,6 +617,41 @@ def _batch_lanes(dev, B=8, m=40, n=70):
     return pb._lpd(lp)
 
 
+def test_batched_form_built_on_card_is_the_cpu_build(cuda_device):
+    """forms.to_standard_form_batch on the card against the same build on
+    the CPU, which tests/test_torch_batch.py holds bit for bit to the
+    lanes' own forms: the card's zero-fill, scatter and slack block give
+    the same bits, for LP lanes with a repeated entry and a maximised lane
+    and for a QP batch."""
+    import scipy.sparse as sp
+
+    from clp_tpu_torch.forms import to_standard_form_batch
+
+    models = _lane_models(B=6)
+    models[1].set_maximize()
+    mdl = models[2]
+    A = mdl.matrix
+    # one more entry at the front of column 0, on its first entry's row
+    rep = sp.csc_matrix((np.r_[0.5, A.data], np.r_[A.indices[0], A.indices],
+                         np.r_[0, A.indptr[1:] + 1]), shape=A.shape)
+    mdl.load_problem(rep, mdl.col_lower, mdl.col_upper, mdl.objective, mdl.row_lower,
+                     mdl.row_upper)
+    assert not mdl.matrix.has_canonical_format
+    qps = [m.copy() for m in models[:4]]
+    for k, q in enumerate(qps):
+        q.load_quadratic_objective(sp.diags(np.linspace(1.0, 2.0 + k, q.num_cols), format="csc"))
+    for batch in (models, qps):
+        cpu, _ = to_standard_form_batch(batch, device="cpu")
+        card, _ = to_standard_form_batch(batch, device=cuda_device)
+        for k in ("G", "b", "c", "l", "u", "Q"):
+            a, b = getattr(cpu, k), getattr(card, k)
+            if a is None:
+                assert b is None and batch is models
+                continue
+            assert b.device.type == "cuda", k
+            assert torch.equal(b.cpu().view(torch.int64), a.view(torch.int64)), k
+
+
 def test_vmapped_dual_pivots_on_card_match_cpu(cuda_device):
     """200 vmapped dual pivots on B = 8 lanes, on the card and on the CPU:
     a lane frozen from the start keeps its state bit for bit while the

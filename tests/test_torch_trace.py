@@ -11,7 +11,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import clp_tpu_torch
-from clp_tpu_torch import trace
+from clp_tpu_torch import forms, trace
 from clp_tpu_torch.constants import INF
 from clp_tpu_torch.parallel import batch as tb
 from clp_tpu_torch.simplex import driver
@@ -196,6 +196,7 @@ def test_batch_dual_spans_and_counters(monkeypatch, case):
     assert c["leftover_lanes"] == 1
     assert c["host_reads"] == reads_off and c["host_read_ns"] > 0
     assert c.get("h2d_bytes", 0) == 0 and c.get("d2h_bytes", 0) == 0
+    assert c["form_nnz"] == sum(m.matrix.nnz for m in models)
     assert c["lane_pivots"] <= c["lane_steps"]
     assert 0 <= c.get("compactions", 0) < c["dispatches"]
     if case == "escalation":
@@ -224,6 +225,27 @@ def test_profiler_events_sit_on_their_spans(tracing):
     for e, s in zip(events, spans):
         assert abs(e.start_ns() - s["start_ns"]) < 1_000_000
         assert abs(e.end_ns() - s["end_ns"]) < 1_000_000
+
+
+def test_form_build_counts_the_payload_that_leaves_the_host():
+    """The batched simplex form built for a device (meta: shapes with no
+    data) counts as h2d_bytes the arrays it sends: a row index and a value
+    a nonzero, a count a column, and c, l and u; form_nnz counts the
+    nonzeros scattered. Built on the CPU, nothing leaves the host."""
+    models = CASES["plain"]()
+    A = models[0].matrix
+    B, (m, n) = len(models), A.shape
+    nnz = sum(mod.matrix.nnz for mod in models)
+    payload = nnz * (A.indices.itemsize + 8) + B * n * A.indptr.itemsize + 3 * B * (n + m) * 8
+    trace.enable()
+    for dev in ("meta", "cpu"):
+        with trace.span("r"):
+            lp, _ = forms.to_standard_form_batch(models, device=dev)
+        assert lp.G.device.type == dev and lp.G.shape == (B, m, n + m)
+    meta, cpu = (r["counters"] for r in trace.snapshot())
+    assert meta == {"h2d_bytes": payload, "form_nnz": nnz}
+    assert cpu == {"form_nnz": nnz}
+    assert payload < lp.G.nbytes
 
 
 def test_batch_ipm_spans():
