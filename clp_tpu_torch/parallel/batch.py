@@ -50,6 +50,12 @@ from .mesh import scenario_sharding
 _LP = ("G", "b", "c", "l", "u")
 _SF = tuple(f.name for f in dataclasses.fields(SimplexState))
 _QF = tuple(f.name for f in dataclasses.fields(qpm.QPState))
+# a lane's cause of a NUMERICAL end in _lanes_prog (its `stops`)
+_STOP_REFACTOR, _STOP_STALL = 1, 2
+# the dual tolerance of the float64 primal cleanup of the float32 loop's
+# optimal bases: it prices in reduced costs of the wrong sign from 10 x
+# this (engine._dual_feasible), which the float64 route does not leave
+_CLEAN_DUAL_TOL = 1e-10
 
 
 # --------------------------------------------------------------------------
@@ -231,6 +237,8 @@ def _chunk(S: dict, active: torch.Tensor, step, chunk: int, U: int, max_iter: in
         n = min(U, chunk - k) if clip else U
         # under vmap every lane of the batch computes each step
         trace.count("lane_steps", run.shape[0] * n)
+        if S["binv"].dtype == torch.float32:
+            trace.count("lane_steps_f32", run.shape[0] * n)
         for _ in range(n):
             S = gate(run, step(S), S)
         k += n
@@ -241,12 +249,16 @@ def _chunk(S: dict, active: torch.Tensor, step, chunk: int, U: int, max_iter: in
 def _lanes_prog(S: dict, recompute, verify, step, opts: SimplexOptions,
                 max_chunks: int = 0, claims=(engine.OPTIMAL, engine.PRIMAL_INFEASIBLE,
                                              engine.DUAL_INFEASIBLE),
-                reclaim: bool = True, U: Optional[int] = None, clip: bool = False):
+                reclaim: bool = True, U: Optional[int] = None, clip: bool = False,
+                stops: Optional[dict] = None):
     """engine._run_loop over a batch of lanes, as jax.vmap runs the JAX
     package's: each lane keeps its own stall count, verification and round
     count, and freezes once its own outer predicate fails. One host read
     per refactor round for the whole batch. A lockstep program; returns
-    (S, verified)."""
+    (S, verified). Given a dict `stops`, it also leaves there, under
+    "why", each lane's cause of a NUMERICAL end (0 none, _STOP_REFACTOR a
+    fresh factor rejected the basis, _STOP_STALL three rounds without a
+    pivot)."""
     U = max(1, int(opts.inner_unroll)) if U is None else U
     Bn = S["status"].shape[0]
     dev = S["status"].device
@@ -255,6 +267,7 @@ def _lanes_prog(S: dict, recompute, verify, step, opts: SimplexOptions,
     rounds = torch.zeros(Bn, dtype=torch.int32, device=dev)
     claims_t = torch.tensor(claims, dtype=S["status"].dtype, device=dev)
     term_t = claims_t[claims_t != OPTIMAL]
+    why = None if stops is None else torch.zeros(Bn, dtype=torch.int8, device=dev)
     while True:
         status = S["status"]
         claim = torch.isin(status, claims_t)
@@ -268,6 +281,9 @@ def _lanes_prog(S: dict, recompute, verify, step, opts: SimplexOptions,
         claimed_opt = status == OPTIMAL
         claimed_term = torch.isin(status, term_t) if reclaim else torch.zeros_like(ok)
         R = recompute(S)
+        if why is not None:
+            why = torch.where(ok & (R["status"] == NUMERICAL) & (why == 0),
+                              _STOP_REFACTOR, why)
         v = claimed_opt & verify(R) & (R["status"] != NUMERICAL)
         R["status"] = torch.where(
             R["status"] == NUMERICAL, NUMERICAL,
@@ -282,8 +298,10 @@ def _lanes_prog(S: dict, recompute, verify, step, opts: SimplexOptions,
         stalls = torch.where(ok, torch.where(made, 0, stalls + 1), stalls).to(stalls.dtype)
         rounds = torch.where(ok, rounds + 1, rounds)
     S = dict(S)
-    S["status"] = torch.where((S["status"] == CONTINUE) & (stalls >= 3), NUMERICAL,
-                              S["status"]).to(S["status"].dtype)
+    stalled = (S["status"] == CONTINUE) & (stalls >= 3)
+    S["status"] = torch.where(stalled, NUMERICAL, S["status"]).to(S["status"].dtype)
+    if why is not None:
+        stops["why"] = torch.where(stalled, _STOP_STALL, why)
     # final consistency pass (already on fresh factors where verified)
     if (yield (~verified).any()):
         S = gate(verified, S, recompute(S))
@@ -302,12 +320,12 @@ def _bprep(E: _Lanes, S: dict) -> dict:
     return E.make_dual_feasible(E.recompute(S))
 
 
-def _brounds_prog(E: _Lanes, S: dict, rounds: int):
+def _brounds_prog(E: _Lanes, S: dict, rounds: int, stops: Optional[dict] = None):
     """`rounds` refactor-chunks of the full claim protocol per lane
     (engine.dual_solve_rounds, lane by lane). A lockstep program; returns
-    (S, verified)."""
+    (S, verified), and the lanes' NUMERICAL causes in `stops` (_lanes_prog)."""
     return (yield from _lanes_prog(S, E.recompute, E.verify_dual, E.dual_step, E.opts,
-                                   max_chunks=rounds))
+                                   max_chunks=rounds, stops=stops))
 
 
 def _bchunk(E: _Lanes, S: dict):
@@ -380,8 +398,12 @@ def _compacting_prog(E: _Lanes, S: dict, rounds_per_dispatch: int = 6):
     costing work. The JAX package pads the survivors to a power of two to
     bound its compiled programs; nothing compiles here, so the live set is
     packed exactly. One packed host read per dispatch; a lockstep program,
-    so over a mesh each shard compacts its own lanes."""
+    so over a mesh each shard compacts its own lanes. Traced under the
+    float32 inverse, the read also carries each lane's NUMERICAL cause,
+    and the lanes retired unsettled are counted by cause
+    (_count_f32_stops); untraced, nothing of that is computed."""
     o = E.opts
+    f32 = trace.enabled() and o.inverse_dtype == "float32"
     Bn = S["status"].shape[0]
     dev = S["status"].device
     out = {k: v.clone() for k, v in S.items()}
@@ -391,10 +413,13 @@ def _compacting_prog(E: _Lanes, S: dict, rounds_per_dispatch: int = 6):
     prev_iters = np.full(Bn, -1, dtype=np.int64)
     stall = np.zeros(Bn, dtype=np.int64)
     for _ in range(max_disp):
-        S, ver = yield from _brounds_prog(E, S, rounds_per_dispatch)
-        stat, ver_np, iters = yield torch.stack(
+        stops = {} if f32 else None
+        S, ver = yield from _brounds_prog(E, S, rounds_per_dispatch, stops)
+        read = yield torch.stack(
             [S["status"].to(torch.int64), ver.to(torch.int64),
-             S["iterations"].to(torch.int64)])
+             S["iterations"].to(torch.int64)]
+            + ([stops["why"].to(torch.int64)] if f32 else []))
+        stat, ver_np, iters = read[:3]
         trace.count("dispatches")
         ver_np = ver_np.astype(bool)
         # settled: verified claims and hard stops. A lane whose terminal
@@ -407,6 +432,8 @@ def _compacting_prog(E: _Lanes, S: dict, rounds_per_dispatch: int = 6):
         give_up = stall >= 2
         finish = ver_np | hard | give_up
         if finish.any():
+            if f32:
+                _count_f32_stops(finish & ~ver_np, read[3], give_up & ~hard)
             gu = torch.as_tensor(give_up & ~(ver_np | hard), device=dev)
             S["status"] = torch.where(gu, NUMERICAL, S["status"]).to(S["status"].dtype)
             fin = torch.as_tensor(np.flatnonzero(finish), device=dev)
@@ -420,8 +447,125 @@ def _compacting_prog(E: _Lanes, S: dict, rounds_per_dispatch: int = 6):
             prev_iters, stall = prev_iters[keep], stall[keep]
             E, S = E.take(kidx), take(S, kidx)
     # dispatch budget exhausted: what is left goes back as NUMERICAL
+    if f32:
+        _count_f32_stops(np.ones(live.numel(), dtype=bool), 0, False)
     S["status"] = torch.full_like(S["status"], NUMERICAL)
     return put(out, live, S)
+
+
+def _count_f32_stops(stopped: np.ndarray, why, claim) -> None:
+    """Count the lanes that the float32 loop retires unsettled (`stopped`,
+    host arrays), by cause: `refactor`, a fresh factor or its float64
+    refinement rejected the basis; `stall`, three fresh factors in a row
+    each followed by a refused pivot (the pivot cross-check or the f32
+    pivot floor); `claim`, a claim that never verified; `limit`, the
+    iteration limit or the dispatch budget."""
+    by = {"refactor": stopped & (why == _STOP_REFACTOR),
+          "stall": stopped & (why == _STOP_STALL), "claim": stopped & claim}
+    by["limit"] = stopped & ~(by["refactor"] | by["stall"] | by["claim"])
+    trace.count("f32_stops", stopped.sum())
+    for cause, lanes in by.items():
+        trace.count(f"f32_stops_{cause}", lanes.sum())
+
+
+def _unsettled(S: dict) -> torch.Tensor:
+    return (S["status"] == NUMERICAL) | (S["status"] == CONTINUE)
+
+
+def _f64_options(opts: SimplexOptions, dual_tolerance: Optional[float] = None):
+    """The float64 engine of the single-LP driver's mixed-precision
+    escalation: refactor every 100 pivots, one pivot a host read."""
+    return dataclasses.replace(opts, inverse_dtype="float64", refactor_frequency=100,
+                               inner_unroll=1,
+                               dual_tolerance=dual_tolerance or opts.dual_tolerance)
+
+
+def _lanes64(E: _Lanes, S: dict, idx: torch.Tensor, opts: SimplexOptions):
+    """The lanes `idx` of S (its inverse already float64) on the float64
+    engine `opts`: their _Lanes, and their states with status CONTINUE."""
+    sub = take(S, idx)
+    sub["status"] = torch.full_like(sub["status"], CONTINUE)
+    return _Lanes(take(E.lpd, idx), opts), sub
+
+
+def _bcold_prog(E: _Lanes, S: dict, mask: torch.Tensor, start, solve: bool):
+    """S with the lanes `mask` restarted cold from `start(lanes)` and
+    refactorized, then, where `solve`, made dual feasible and solved by
+    the dual. A lockstep program."""
+    idx = yield from _lanes_of(mask)
+    if not idx.numel():
+        return S
+    trace.count("f64_finish_cold", idx.numel())
+    Ec = E.take(idx)
+    sub = Ec.recompute(start(Ec))
+    if solve:
+        sub, _ = yield from _lanes_prog(Ec.make_dual_feasible(sub), Ec.recompute,
+                                        Ec.verify_dual, Ec.dual_step, Ec.opts)
+    return put(S, idx, sub)
+
+
+def _bf64_finish_prog(E: _Lanes, S: dict, need: torch.Tensor, start):
+    """The lanes `need` go on warm from their own bases on the float64
+    engine, as one batch: the single-LP driver's mixed-precision
+    escalation (simplex/driver.py) lane by lane. Each lane's inverse is
+    refactorized in float64, the lane made dual feasible and solved by the
+    float64 dual. A lane whose carried basis the float64 factor rejects
+    restarts cold from `start(lanes)`; so, once, does one that the float64
+    dual cannot finish from (a near-singular basis the factor let
+    through). A lockstep program."""
+    idx = yield from _lanes_of(need)
+    trace.count("f64_finish_lanes", idx.numel())
+    if not idx.numel():
+        return S
+    Es, sub = _lanes64(E, S, idx, _f64_options(E.opts))
+    sub = Es.recompute(sub)
+    rejected = sub["status"] == NUMERICAL
+    sub = yield from _bcold_prog(Es, sub, rejected, start, solve=False)
+    sub, _ = yield from _lanes_prog(Es.make_dual_feasible(sub), Es.recompute, Es.verify_dual,
+                                    Es.dual_step, Es.opts)
+    sub = yield from _bcold_prog(Es, sub, _unsettled(sub) & ~rejected, start, solve=True)
+    return put(S, idx, sub)
+
+
+def _bf64_clean_prog(E: _Lanes, S: dict, need: torch.Tensor):
+    """The OPTIMAL lanes `need`, primal feasible on fresh float64 factors
+    but with reduced costs of the wrong sign that the float64 route does
+    not leave (the float32 pricing leaves up to ~1e-7, inside the dual
+    tolerance), cleaned by the float64 primal simplex from their own bases
+    at the dual tolerance _CLEAN_DUAL_TOL: Clp's primal cleanup after the
+    dual. A lockstep program."""
+    idx = yield from _lanes_of(need)
+    trace.count("f64_clean_lanes", idx.numel())
+    if not idx.numel():
+        return S
+    Es, sub = _lanes64(E, S, idx, _f64_options(E.opts, _CLEAN_DUAL_TOL))
+    sub, _ = yield from _lanes_prog(Es.recompute(sub), Es.recompute, Es.verify_primal,
+                                    Es.primal_step, Es.opts)
+    return put(S, idx, sub)
+
+
+def _bf64_prog(E: _Lanes, S: dict, start):
+    """The float64 end of the float32 route, over one block of lanes (a
+    lockstep program):
+      1. every OPTIMAL claim of the float32 loop is refactorized in
+         float64, so its x_B, y and dj are the float64 engine's; a claim
+         that is not primal feasible there is reopened;
+      2. the lanes the float32 loop left unsettled, and the reopened
+         ones, finish on the float64 engine (_bf64_finish_prog);
+      3. an OPTIMAL lane with reduced costs of the wrong sign beyond 10 x
+         _CLEAN_DUAL_TOL is cleaned by the float64 primal
+         (_bf64_clean_prog).
+    Returns the lanes' states on float64 inverses, for the float64 engine
+    that the escalation and the primal finish run on next. Only what
+    these leave unsettled goes to the single-LP driver."""
+    S = dict(S, binv=S["binv"].to(E.lpd["G"].dtype))
+    Ec = E.with_opts(_f64_options(E.opts, _CLEAN_DUAL_TOL))
+    R = Ec.recompute(S)
+    R["status"] = torch.where(Ec.verify_dual(R) & (R["status"] != NUMERICAL),
+                              OPTIMAL, CONTINUE).to(S["status"].dtype)
+    S = gate(S["status"] == OPTIMAL, R, S)
+    S = yield from _bf64_finish_prog(E, S, _unsettled(S), start)
+    return (yield from _bf64_clean_prog(E, S, (S["status"] == OPTIMAL) & ~Ec.verify_primal(S)))
 
 
 def _engine_options(options: SolveOptions, m0: int, accel: bool) -> SimplexOptions:
@@ -486,34 +630,38 @@ def _each(flags, progs) -> list:
     return out
 
 
-def _dual_lanes(shards: list, options: SolveOptions, warm: Optional[Solution]):
-    """The batched dual over the placed lane blocks: the compacting pivot
-    loop, the fake-bound escalation and the primal finish. Returns each
-    block's states, LP dicts and fake-bound flags, and the options of the
-    last escalation."""
+def _start(E: _Lanes, warm: Optional[Solution]) -> dict:
+    """The lanes' starting states: all-slack, or a shared warm basis (e.g.
+    strong branching from one parent), each lane's built on the host, then
+    stacked."""
     from ..simplex.driver import _warm_state
 
+    if warm is None or warm.column_status is None:
+        return E.initial_state()
+    B, m0, nt0 = E.lpd["G"].shape
+    per = [_warm_state(_lp(lane(E.lpd, i)), E.opts, warm, nt0 - m0, m0) for i in range(B)]
+    return {k: torch.stack([getattr(p, k) for p in per]) for k in _SF}
+
+
+def _dual_lanes(shards: list, options: SolveOptions, warm: Optional[Solution]):
+    """The batched dual over the placed lane blocks: the compacting pivot
+    loop, under the float32 inverse its float64 end (_bf64_prog), then
+    the fake-bound escalation and the primal finish, on the float64 engine
+    after a float64 end (as the single-LP driver's after its escalation).
+    Returns each block's states, LP dicts and fake-bound flags, and the
+    options of the last escalation."""
     accel = on_accelerator(shards[0].G)
     if accel:
         check_fp32_precision()
-    m0, nt0 = shards[0].G.shape[1:]
-    opts = _engine_options(options, m0, accel)
-    Es, Ss = [], []
-    for lp_s in shards:
-        lpd = _lpd(lp_s)
-        E = _Lanes(lpd, opts)
-        if warm is not None and warm.column_status is not None:
-            # a shared warm basis (e.g. strong branching from one parent):
-            # each lane's warm state built on the host, then stacked
-            per = [_warm_state(_lp(lane(lpd, i)), opts, warm, nt0 - m0, m0)
-                   for i in range(lp_s.G.shape[0])]
-            S = {k: torch.stack([getattr(p, k) for p in per]) for k in _SF}
-        else:
-            S = E.initial_state()
-        Es.append(E)
-        Ss.append(S)
-
-    Ss = lockstep([_compacting_prog(E, S) for E, S in zip(Es, Ss)])
+    opts = _engine_options(options, shards[0].G.shape[1], accel)
+    Es = [_Lanes(_lpd(lp_s), opts) for lp_s in shards]
+    Ss = lockstep([_compacting_prog(E, _start(E, warm)) for E in Es])
+    if opts.inverse_dtype == "float32":
+        with trace.span("f64_finish"):
+            Ss = lockstep([_bf64_prog(E, S, lambda lanes: _start(lanes, warm))
+                           for E, S in zip(Es, Ss)])
+        opts = _f64_options(opts)
+        Es = [E.with_opts(opts) for E in Es]
 
     lpds = [E.lpd for E in Es]
     fakes = [_fake_lanes(lpd, S) for lpd, S in zip(lpds, Ss)]
@@ -563,9 +711,16 @@ def solve_batch_dual_simplex(
     read per block of pivots for the whole mesh, and each compacts its own
     live set. The escalation decisions stay the batch's, as without a mesh.
 
+    Under the float32 inverse (the card's choice from m = 512), the lanes
+    the float32 loop leaves unsettled go on warm from their own bases on
+    the float64 engine, still as one batch, before the escalation: the
+    single-instance driver's mixed-precision escalation, batched. The
+    escalation and the primal finish then run on that float64 engine.
+
     Traced (clp_tpu_torch/trace.py) as the root `batch_dual` with the
-    spans stack, place, loop (escalation, primal_finish), copy_back and
-    unpack (leftover, one a lane sent to the single-instance driver).
+    spans stack, place, loop (f64_finish under the float32 inverse,
+    escalation, primal_finish), copy_back and unpack (leftover, one a lane
+    sent to the single-instance driver).
     """
     with trace.span("batch_dual", lanes=len(models)) as root:
         # the call's locals (gigabytes of host copies) are freed as
